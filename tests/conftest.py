@@ -7,11 +7,3 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", False)
-
-
-def pytest_configure(config):
-    config.addinivalue_line(
-        "markers",
-        "gpu: needs a CUDA device (the port's hand-written kernels); "
-        "skips without one",
-    )
