@@ -1,0 +1,1 @@
+"""Launch layer: the serving driver (``python -m repro_torch.launch.serve``)."""

@@ -20,6 +20,9 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch, repro_torch.scenarios, repro_torch.core.sim.soa\n"
         "import repro_torch.core.sim.soa_kernels, repro_torch.core.sim.batch\n"
         "import repro_torch._cuda\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.models.convert\n"
+        "import repro_torch.kernels, repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.serving, repro_torch.serving.colocated, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m] is not None]\n"
@@ -117,3 +120,55 @@ def test_unported_recorders_and_sweeps_raise():
     for fn in (sweep, aggregate_sweep, parallel_map):
         with pytest.raises(NotImplementedError, match="A7"):
             fn(1)
+
+
+def test_serving_engine_without_device_raises_when_cuda_absent(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    cfg = get_config("granite_moe_1b", reduced=True)
+    params = init_params(cfg, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params, EngineConfig(max_batch=2, max_len=16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "granite_moe_1b"])
+
+
+@pytest.mark.parametrize("arch, item", [
+    ("mamba2_2p7b", "B3"), ("recurrentgemma_9b", "B4"), ("deepseek_v2_236b", "A9"),
+    ("gemma2_27b", "A9"), ("gemma3_4b", "A9"), ("stablelm_12b", "A9"),
+    ("phi3_vision_4p2b", "A9"), ("musicgen_large", "A9"),
+])
+def test_unported_archs_name_their_roadmap_item(arch, item):
+    from repro_torch.configs import get_config
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        get_config(arch)
+
+
+@pytest.mark.parametrize("op, item", [("ssd_chunked", "B3"), ("rglru_scan", "B4")])
+def test_unported_kernels_name_their_roadmap_item(op, item):
+    from repro_torch.kernels import ops
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        getattr(ops, op)()
+
+
+def test_unported_model_branches_name_their_roadmap_item():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    base = get_config("phi4_mini_3p8b", reduced=True)
+    for change, item in [
+        (dict(family="ssm"), "B3"), (dict(family="hybrid"), "B4"), (dict(mla=True), "A9"),
+        (dict(num_codebooks=4), "A9"), (dict(num_patches=16), "A9"),
+    ]:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            LM(dataclasses.replace(base, **change))
