@@ -14,7 +14,13 @@ Phases, each printing one JSON line:
    the ladder grant at the SoA path's widths (exact equality); flash
    attention and the MoE grouped matmul at the serve path's shapes, at the
    reference's kernel-test sweep shapes and through offset / ragged-cache
-   decode cases, in bf16 and f32 (tolerances ``TOL``);
+   decode cases, in bf16 and f32 (tolerances ``TOL``); the SSD intra-chunk
+   kernel at the sweep shapes, mamba2-2.7b's full width (L = 1024 and a
+   ragged L = 600) and the serve prefill, and ``ops.ssd_chunked`` against
+   the model-level chunked scan with a nonzero initial state (``TOL_SSD``);
+   the RG-LRU scan at the sweep shapes, recurrentgemma's prefill
+   ``(1, 2048, 4096)`` and decode ``(4, 1, 4096)``; flash attention at
+   D = 256 on 128-slot rings (part-filled and wrapped ``kv_positions``);
 4. ``sampler`` — the torch trace sampler on the card against the NumPy
    host path (R=1024, ``rtol=1e-12``);
 5. ``main``    — ``run(commute, ads_tile, cockpit_replicas=4, seeds=range
@@ -27,14 +33,17 @@ Phases, each printing one JSON line:
 8. ``profile`` — device busy share of the round loop (torch.profiler over
    the main path's first 100 rounds at R=1024) and the grant kernel's
    device time;
-9. ``serve``   — the LM serving path: ``ServingEngine`` on granite-moe-1b
-   at full width in bf16 (random weights from seed 0) with the reference
+9. ``serve``   — the LM serving path, for each arch of ``SERVE_ARCHS`` in
+   turn (each freed before the next is built): ``ServingEngine`` at full
+   width in bf16 (random weights from seed 0) with the reference
    launcher's traffic (12 requests, prompt 16, 16 new tokens, batch 4,
    max_len 128), every launch counter set to 0 just before and read just
-   after; tokens/s, request and first-token latency, weight bytes; a
-   profiled window of decode steps (``serve_profile``); one request's
-   prefill and 4 decode steps held against the port's CPU path on the same
-   weights, widened to float32 on both sides (``serve_xcheck``);
+   after, and each kernel's count asserted; tokens/s, request and
+   first-token latency, weight bytes; a profiled window of decode steps
+   (``serve_profile``); one request's prefill and 4 decode steps held
+   against the port's CPU path on the same weights, widened to float32 on
+   both sides (``serve_xcheck``; ``XCHECK_LAYERS`` cuts the depth where
+   the float32 copy would not fit the host);
 10. ``timing`` — kernel, plain-version, library and bound times at each
    path's shapes, then the ``kernels`` line.
 
@@ -59,8 +68,13 @@ from repro_torch import _cuda  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import moe_gmm as MG  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import rglru as RG  # noqa: E402
+from repro_torch.kernels import ssd as SSD  # noqa: E402
 from repro_torch.models import LM, init_params  # noqa: E402
+from repro_torch.models.lm import _hybrid_layout as hybrid_layout  # noqa: E402
+from repro_torch.models.mamba2 import ssd_chunked as ssd_chunked_plain  # noqa: E402
 from repro_torch.serving import EngineConfig, Request, ServingEngine  # noqa: E402
 from repro_torch.core.sim import soa  # noqa: E402
 from repro_torch.core.sim import soa_kernels as K  # noqa: E402
@@ -78,7 +92,7 @@ BF16_OPS_PER_S = 989e12
 
 PHASES = ("device", "build", "kernel", "sampler", "main", "loop", "equiv",
           "profile", "serve", "timing")
-KERNELS = ("ladder_grant", "flash_attention", "moe_gmm")
+KERNELS = ("ladder_grant", "flash_attention", "moe_gmm", "ssd_intra_chunk", "rglru_scan")
 MAIN_R = 1024
 KS_TOL = 0.08
 T_START = time.perf_counter()
@@ -172,6 +186,18 @@ def phase_build():
 #: versions, so they may differ by an ulp of bf16 (2^-8 relative)
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+#: the SSD kernel's tolerances there (``test_ssd_kernel_sweep``): its outputs
+#: are float32 sums of up to 256 terms of magnitude ~10
+TOL_SSD = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+#: the kernel (and ops.ssd_chunked) against the formulations that form the
+#: prefix sum acum in float32 (the reference-copied oracle, the model-level
+#: chunked scan), at chunk 256: |acum| reaches ~300, where a float32 ulp is
+#: 3e-5, so their exponents differ by rounding alone and y by up to 1.7e-3
+#: against a float64 evaluation of the same inputs (measured on the CPU at
+#: this shape; see kernels/ssd.py).  Chunks of 16 and 32 keep ``TOL_SSD``
+TOL_SSD_F32_ACUM = {torch.float32: dict(rtol=2e-3, atol=2e-3),
+                    torch.bfloat16: TOL_SSD[torch.bfloat16]}
 DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -180,12 +206,12 @@ def _randn(shape, dtype, seed, scale=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
 
 
-def _held(got, want, dtype, what):
+def _held(got, want, dtype, what, tol=TOL):
     torch.cuda.synchronize()
     got, want = got.float(), want.float()
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     err = float((got - want).abs().max())
-    check(torch.allclose(got, want, **TOL[dtype]), f"{what}: max abs err {err}")
+    check(torch.allclose(got, want, **tol[dtype]), f"{what}: max abs err {err}")
     return err
 
 
@@ -213,6 +239,69 @@ MOE_CASES = [
     ("sweep_8x96x16x32", 8, 96, 16, 32, 0.1),
     ("reduced_4x10x64x32", 4, 10, 64, 32, None),
 ]
+
+
+#: (name, B, L, H, P, N, chunk): tests/test_kernels.py's SSD sweep,
+#: mamba2-2.7b's full width (80 heads of 64, state 128, chunk 256) at
+#: L = 1024 and a ragged L = 600, and the serve prefill (one chunk of 16)
+SSD_CASES = [
+    ("sweep_1x64x4x16x16", 1, 64, 4, 16, 16, 16),
+    ("sweep_2x96x8x32x32", 2, 96, 8, 32, 32, 32),
+    ("full_L1024", 1, 1024, 80, 64, 128, 256),
+    ("full_ragged_L600", 1, 600, 80, 64, 128, 256),
+    ("serve_prefill", 1, 16, 80, 64, 128, 16),
+]
+
+
+def ssd_inputs(B, L, H, P, N, dtype, seed):
+    """x, dt (softplus'd), A (< 0), Bm, Cm as the model makes them: x/B/C in
+    ``dtype``, dt and A float32; B/C with one group (B, L, 1, N)."""
+    x = _randn((B, L, H, P), dtype, seed)
+    dt = torch.nn.functional.softplus(_randn((B, L, H), torch.float32, seed + 1))
+    A = -torch.exp(_randn((H,), torch.float32, seed + 2, 0.3))
+    return x, dt, A, _randn((B, L, 1, N), dtype, seed + 3), _randn((B, L, 1, N), dtype, seed + 4)
+
+
+def ssd_chunks(x, dt, Bm, Cm, chunk):
+    """The chunk-major layout ``ops.ssd_chunked`` hands the kernel (the
+    ragged tail padded with dt = 0)."""
+    B, L, H, P = x.shape
+    c = min(chunk, L)
+    nb = -(-L // c)
+    pad = nb * c - L
+    F = torch.nn.functional
+    x, dt = F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad))
+    Bm, Cm = F.pad(Bm, (0, 0, 0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    N = Bm.shape[-1]
+    return (x.reshape(B, nb, c, H, P), dt.reshape(B, nb, c, H),
+            Bm.reshape(B, nb, c, N), Cm.reshape(B, nb, c, N))
+
+
+#: (name, B, L, W): tests/test_kernels.py's RG-LRU sweep, recurrentgemma-9b's
+#: LRU width at a 2048-token prefill and at the batch-4 decode step
+RGLRU_CASES = [("sweep_1x64x64", 1, 64, 64), ("sweep_2x48x128", 2, 48, 128),
+               ("prefill_1x2048x4096", 1, 2048, 4096), ("decode_4x1x4096", 4, 1, 4096)]
+
+#: (name, B, Hq, Hkv, W slots, D, pos, window): recurrentgemma's decode on
+#: its 128-slot ring (16 query heads on one KV head of 256), part-filled
+#: (empty slots at negative positions) and wrapped; and a window inside the
+#: ring at a smaller head dim
+RING_CASES = [("ring_part_filled_d256", 4, 16, 1, 128, 256, 40, 2048),
+              ("ring_wrapped_d256", 4, 16, 1, 128, 256, 300, 2048),
+              ("ring_wrapped_window_d64", 2, 8, 2, 64, 64, 150, 48)]
+
+
+def ring_positions(pos, slots):
+    """Slot i of a ring that holds position p in slot p mod W sits at
+    position pos - ((pos - i) mod W): negative for a slot not yet written."""
+    idx = torch.arange(slots, dtype=torch.int32, device="cuda")
+    return pos - torch.remainder(pos - idx, slots)
+
+
+def rglru_inputs(B, L, W, dtype, seed):
+    return (_randn((B, L, W), dtype, seed), _randn((B, L, W), dtype, seed + 1),
+            _randn((B, L, W), dtype, seed + 2), _randn((W,), torch.float32, seed + 3),
+            _randn((B, W), dtype, seed + 4))
 
 
 def flash_inputs(B, Hq, Hkv, Lq, Lk, D, dtype, seed):
@@ -261,6 +350,17 @@ def phase_kernel(errs):
                       f"flash_attention {name} {dtype} vs attention_ref")
             errs["flash_attention"].append(err)
             res[f"{name}/{str(dtype)[6:]}"] = err
+    for i, (name, B, Hq, Hkv, W, D, pos, w) in enumerate(RING_CASES):
+        for dtype in DTYPES:
+            q, k, v = flash_inputs(B, Hq, Hkv, 1, W, D, dtype, seed=300 + 10 * i)
+            kw = dict(causal=True, window=w, q_offset=pos, kv_positions=ring_positions(pos, W))
+            before = FA.flash_attention.launches
+            got = FA.flash_attention(q, k, v, **kw)
+            check(FA.flash_attention.launches == before + 1, f"flash {name}: no launch")
+            err = _held(got, FA.flash_attention_plain(q, k, v, **kw), dtype,
+                        f"flash_attention {name} {dtype}")
+            errs["flash_attention"].append(err)
+            res[f"{name}/{str(dtype)[6:]}"] = err
     emit("kernel", name="flash_attention", cases=len(res), tol={str(k)[6:]: v for k, v in TOL.items()},
          max_abs_err=max(errs["flash_attention"]), max_abs_err_by_case=res)
 
@@ -277,6 +377,51 @@ def phase_kernel(errs):
             res[f"{name}/{str(dtype)[6:]}"] = err
     emit("kernel", name="moe_gmm", cases=len(res), tol={str(k)[6:]: v for k, v in TOL.items()},
          max_abs_err=max(errs["moe_gmm"]), max_abs_err_by_case=res)
+
+    res = {}
+    for i, (name, B, L, H, P, N, chunk) in enumerate(SSD_CASES):
+        for dtype in DTYPES:
+            x, dt, A, Bm, Cm = ssd_inputs(B, L, H, P, N, dtype, seed=700 + 10 * i)
+            xc, dtc, Bc, Cc = ssd_chunks(x, dt, Bm, Cm, chunk)
+            before = SSD.ssd_intra_chunk.launches
+            got = SSD.ssd_intra_chunk(xc, dtc, A, Bc, Cc)
+            check(SSD.ssd_intra_chunk.launches == before + 1, f"ssd {name}: no launch")
+            want = SSD.ssd_intra_chunk_plain(xc, dtc, A, Bc, Cc)
+            err = max(_held(g, w, dtype, f"ssd_intra_chunk {name} {dtype} {part}", TOL_SSD)
+                      for g, w, part in zip(got, want, ("y_intra", "contrib", "chunk_decay")))
+            tol = TOL_SSD_F32_ACUM if chunk > 32 else TOL_SSD
+            ora = kref.ssd_intra_chunk_ref(xc, dtc, A, Bc, Cc)
+            for g, w, part in zip(got, ora, ("y_intra", "contrib", "chunk_decay")):
+                _held(g, w, dtype, f"ssd_intra_chunk {name} {dtype} {part} vs ref", tol)
+            # the whole op, seeded with a nonzero state, against the
+            # model-level chunked scan (an independent formulation)
+            s0 = _randn((B, H, P, N), torch.float32, seed=790 + i, scale=0.1)
+            y, fin = kops.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
+            y2, fin2 = ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
+            check(tuple(y.shape) == (B, L, H, P) and y.dtype == dtype, f"ssd_chunked {name}")
+            _held(y, y2, dtype, f"ssd_chunked {name} {dtype} y", tol)
+            _held(fin, fin2, dtype, f"ssd_chunked {name} {dtype} state", tol)
+            errs["ssd_intra_chunk"].append(err)
+            res[f"{name}/{str(dtype)[6:]}"] = err
+    emit("kernel", name="ssd_intra_chunk", cases=len(res),
+         tol={str(k)[6:]: v for k, v in TOL_SSD.items()},
+         max_abs_err=max(errs["ssd_intra_chunk"]), max_abs_err_by_case=res)
+
+    res = {}
+    for i, (name, B, L, W) in enumerate(RGLRU_CASES):
+        for dtype in DTYPES:
+            args = rglru_inputs(B, L, W, dtype, seed=400 + 10 * i)
+            before = RG.rglru_scan.launches
+            got = RG.rglru_scan(*args)
+            check(RG.rglru_scan.launches == before + 1, f"rglru {name}: no launch")
+            err = max(_held(g, w, dtype, f"rglru_scan {name} {dtype} {part}")
+                      for g, w, part in zip(got, RG.rglru_scan_plain(*args), ("h", "h_T")))
+            for g, w, part in zip(got, kref.rglru_scan_ref(*args), ("h", "h_T")):
+                _held(g, w, dtype, f"rglru_scan {name} {dtype} {part} vs ref")
+            errs["rglru_scan"].append(err)
+            res[f"{name}/{str(dtype)[6:]}"] = err
+    emit("kernel", name="rglru_scan", cases=len(res), tol={str(k)[6:]: v for k, v in TOL.items()},
+         max_abs_err=max(errs["rglru_scan"]), max_abs_err_by_case=res)
 
 
 def phase_sampler():
@@ -487,19 +632,25 @@ def phase_equiv():
     emit("equiv", scenario="commute", seeds=seeds, **res)
 
 
+#: the archs the serve phase drives, in turn, at full width
+SERVE_ARCHS = ("granite_moe_1b", "mamba2_2p7b", "recurrentgemma_9b")
 #: the reference launcher's traffic (src/repro/launch/serve.py): 12
 #: requests, prompt 16, 16 new tokens, batch 4, max_len 128
-SERVE = dict(arch="granite_moe_1b", requests=12, prompt_len=16, max_new=16,
-             batch=4, max_len=128)
+SERVE = dict(requests=12, prompt_len=16, max_new=16, batch=4, max_len=128)
 #: card (kernels) vs CPU (plain versions) on the same weights, held in
 #: float32 on both sides (the bf16 weights widened exactly): max |logit
 #: difference| over one prefill and 4 decode steps.  The two sides sum in
-#: other orders (~1e-6 relative per product), which 24 layers grow to
+#: other orders (~1e-6 relative per product), which 24-64 layers grow to
 #: ~1e-4 on logits of magnitude ~5.  In bf16 the same comparison is not
 #: stable: a rounding difference can flip one of a token's top-8 experts,
 #: which moves the logits by O(1)
 XCHECK_STEPS = 4
 XCHECK_LOGIT_ATOL = 2e-3
+#: depth of the float32 cross-check per arch (absent: the full depth).
+#: recurrentgemma-9b's 9.4 B parameters are 37.6 GB in float32, which with
+#: the host's own copy would not fit: it is checked at full width on one
+#: (lru, lru, attn) unit and the two trailing LRU blocks
+XCHECK_LAYERS = {"recurrentgemma-9b": 5}
 
 
 def _leaves(tree):
@@ -510,16 +661,37 @@ def _leaves(tree):
         yield tree
 
 
+#: the launch-counted wrapper of each kernel
+COUNTED = {"ladder_grant": K.ladder_grant, "flash_attention": FA.flash_attention,
+           "moe_gmm": MG.moe_gmm, "ssd_intra_chunk": SSD.ssd_intra_chunk,
+           "rglru_scan": RG.rglru_scan}
+
+
 def _zero_counts():
-    K.ladder_grant.launches = 0
-    FA.flash_attention.launches = 0
-    MG.moe_gmm.launches = 0
+    for fn in COUNTED.values():
+        fn.launches = 0
 
 
 def _counts():
-    return {"ladder_grant": K.ladder_grant.launches,
-            "flash_attention": FA.flash_attention.launches,
-            "moe_gmm": MG.moe_gmm.launches}
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def _expected_launches(cfg, prefill_calls, decode_calls):
+    """Kernel launches one serve run must make: one per layer that runs
+    the kernel per engine call (SSD only in prefills), none elsewhere."""
+    want = dict.fromkeys(COUNTED, 0)
+    calls = prefill_calls + decode_calls
+    if cfg.family == "ssm":
+        want["ssd_intra_chunk"] = cfg.num_layers * prefill_calls
+    elif cfg.family == "hybrid":
+        n_lru, n_att = hybrid_layout(cfg)
+        want["rglru_scan"] = n_lru * calls
+        want["flash_attention"] = n_att * calls
+    else:
+        want["flash_attention"] = cfg.num_layers * calls
+        if cfg.num_experts:
+            want["moe_gmm"] = cfg.num_layers * calls
+    return want
 
 
 def _greedy_steps(model, params, prompt, steps, device, feed=None):
@@ -542,7 +714,29 @@ def _greedy_steps(model, params, prompt, steps, device, feed=None):
     return out, greedy
 
 
+def _cut_depth(cfg, params, layers):
+    """The first ``layers`` layers of a stacked tree (for the hybrid, the
+    LRU and attention stacks its shorter pattern needs)."""
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    if cfg.family == "hybrid":
+        n_lru, n_att = hybrid_layout(cut)
+        stacks = {"lru_layers": n_lru, "attn_layers": n_att}
+    else:
+        stacks = {"layers": layers}
+    out = dict(params)
+    for key, n in stacks.items():
+        out[key] = _map(params[key], lambda a, n=n: a[:n])
+    return cut, out
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
 def _serve_xcheck(cfg, params, prompt):
+    layers = XCHECK_LAYERS.get(cfg.name)
+    if layers:
+        cfg, params = _cut_depth(cfg, params, layers)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model = LM(cfg32)
     p32 = _to(params, "cuda", torch.float32)
@@ -560,7 +754,9 @@ def _serve_xcheck(cfg, params, prompt):
         errs.append(float((a - b).abs().max()))
         top2 = torch.topk(b, 2).values
         margins.append(float(top2[0] - top2[1]))
-    res = dict(dtype="float32", steps=1 + XCHECK_STEPS, tokens=gpu_tok,
+    del p32
+    res = dict(arch=cfg.name, layers=cfg.num_layers, dtype="float32",
+               steps=1 + XCHECK_STEPS, tokens=gpu_tok,
                max_abs_logit_err=errs, cpu_top2_margin=margins,
                logit_atol=XCHECK_LOGIT_ATOL, card_s=gpu_s, cpu_s=cpu_s)
     emit("serve_xcheck", **res)
@@ -575,6 +771,12 @@ def _to(tree, device, dtype=None):
     if isinstance(tree, dict):
         return {k: _to(v, device, dtype) for k, v in tree.items()}
     return tree.to(device=device, dtype=dtype or tree.dtype)
+
+
+#: kernel -> a substring of its device kernel's name (for the SSD wrapper,
+#: the chunk kernel that follows its C.B^T tiles)
+DEVICE_NAMES = {"flash_attention": "flash_fwd_kernel", "moe_gmm": "moe_gmm_kernel",
+                "ssd_intra_chunk": "ssd_chunk_kernel", "rglru_scan": "rglru_scan_kernel"}
 
 
 def _serve_profile(cfg, params, ecfg, n_steps=3):
@@ -605,20 +807,20 @@ def _serve_profile(cfg, params, ecfg, n_steps=3):
     n_kern, busy, by_name = _device_kernels(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return dict(
-        decode_steps=n_steps, batch=ecfg.max_batch,
+        arch=cfg.name, decode_steps=n_steps, batch=ecfg.max_batch,
         wall_ms_per_step=plain_us / 1e3 / n_steps,
         wall_ms_per_step_profiled=prof_us / 1e3 / n_steps,
         device_kernels_per_step=n_kern / n_steps,
         device_busy_ms_per_step=busy / 1e3 / n_steps if n_kern else None,
         device_idle_share=(1.0 - busy / plain_us) if n_kern else None,
-        flash_attention_device_ms=_per_launch_ms(by_name, "flash_fwd_kernel"),
-        moe_gmm_device_ms=_per_launch_ms(by_name, "moe_gmm_kernel"),
+        kernel_device_ms={name: _per_launch_ms(by_name, tag) for name, tag in DEVICE_NAMES.items()},
         top_device_ms={k[:60]: [v[0], round(v[1] / 1e3, 4)] for k, v in top},
     )
 
 
-def phase_serve():
-    cfg = get_config(SERVE["arch"])
+def phase_serve(arch):
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     params = init_params(cfg, device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(0))
@@ -650,10 +852,8 @@ def phase_serve():
     wall = time.time() - t0
     launches = _counts()
 
-    calls = engine.prefill_calls + engine.decode_calls
-    for name in ("flash_attention", "moe_gmm"):
-        check(launches[name] == cfg.num_layers * calls,
-              f"serve: {launches[name]} {name} launches, want {cfg.num_layers} x {calls}")
+    want = _expected_launches(cfg, engine.prefill_calls, engine.decode_calls)
+    check(launches == want, f"serve {arch}: launches {launches}, want {want}")
     toks = [t for r in reqs for t in r.generated]
     check(all(len(r.generated) == SERVE["max_new"] for r in reqs), "serve: short request")
     check(all(0 <= t < cfg.vocab_size for t in toks), "serve: token outside [0, vocab)")
@@ -671,7 +871,10 @@ def phase_serve():
     prof = _serve_profile(cfg, params, ecfg)
     emit("serve_profile", **prof)
     _serve_xcheck(cfg, params, reqs[0].prompt)
-    return dict(params=params, launches=launches, profile=prof)
+    # the timing phase reuses granite-moe's expert weights (2.4 GB); the
+    # rest of every model is freed before the next one is built
+    return dict(launches=launches, profile=prof,
+                moe=params["layers"]["moe"] if cfg.num_experts else None)
 
 
 def _bound(nbytes, nops, ops_per_s):
@@ -713,17 +916,32 @@ def _sdpa(q, k, v, mask):
 
 
 def _flash_timing(launches, errs):
+    """granite-moe's decode and prefill (D = 64) and recurrentgemma's ring
+    decode and prefill (D = 256, MQA); granite's decode is the
+    kernels-line row (the call the serve path makes most)."""
     out = {}
-    for name, B, Hq, Hkv, Lq, Lk, D, qo, kvl, w, c in FLASH_CASES[:2]:
+    cases = [(c, None) for c in FLASH_CASES[:2]] + [
+        (("rg_decode_d256", 4, 16, 1, 1, 128, 256, 24, 128, 2048, 0.0), 24),
+        (("rg_prefill_d256", 1, 16, 1, 16, 16, 256, 0, 16, 2048, 0.0), None),
+    ]
+    for (name, B, Hq, Hkv, Lq, Lk, D, qo, kvl, w, c), ring_pos in cases:
         dt = torch.bfloat16
         q, k, v = flash_inputs(B, Hq, Hkv, Lq, Lk, D, dt, seed=900)
         kw = dict(causal=True, window=w, softcap=c, q_offset=qo, kv_valid_len=kvl)
+        qpos = qo + torch.arange(Lq, device="cuda")[:, None]
+        if ring_pos is None:
+            kpos = torch.arange(Lk, device="cuda")[None, :]
+            mask = (kpos < kvl) & (kpos <= qpos)
+        else:
+            kw = dict(causal=True, window=w, softcap=c, q_offset=qo,
+                      kv_positions=ring_positions(ring_pos, Lk))
+            kpos = kw["kv_positions"][None, :]
+            mask = (kpos >= 0) & (kpos <= qpos)
+        if w > 0:
+            mask = mask & (kpos > qpos - w)
         got = FA.flash_attention(q, k, v, **kw)
         errs["flash_attention"].append(_held(got, FA.flash_attention_plain(q, k, v, **kw), dt,
                                              f"flash_attention timing {name}"))
-        qpos = qo + torch.arange(Lq, device="cuda")[:, None]
-        kpos = torch.arange(Lk, device="cuda")[None, :]
-        mask = (kpos < kvl) & (kpos <= qpos)
         lib = _sdpa(q, k, v, mask)
         _held(got, lib, dt, f"flash_attention {name} vs scaled_dot_product_attention")
         ms = cuda_ms(lambda: FA.flash_attention(q, k, v, **kw))
@@ -731,30 +949,32 @@ def _flash_timing(launches, errs):
         lib_ms = cuda_ms(lambda: _sdpa(q, k, v, mask))
         ms2 = cuda_ms(lambda: FA.flash_attention(q, k, v, **kw))
         pairs = int(mask.sum()) * B * Hq                 # visible (query, key) pairs
-        nbytes = 2 * (2 * B * Hq * Lq * D + 2 * B * Hkv * kvl * D)   # q, out; valid k, v rows
+        rows = int(mask.any(dim=0).sum())                # key rows any query sees
+        nbytes = 2 * (2 * B * Hq * Lq * D + 2 * B * Hkv * rows * D)  # q, out; visible k, v
         nops = 4 * pairs * D                             # q.k and p.v
         bound_ms, by = _bound(nbytes, nops, BF16_OPS_PER_S)
         out[name] = dict(ms=min(ms, ms2), ms_runs=[ms, ms2], plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
                          bytes=nbytes, ops=nops)
         emit("timing", name="flash_attention", case=name, dtype="bfloat16",
-             q=[B, Hq, Lq, D], kv=[B, Hkv, Lk, D], q_offset=qo, kv_valid_len=kvl, **out[name])
-    d = out["serve_decode"]   # the call the serve path makes most
+             q=[B, Hq, Lq, D], kv=[B, Hkv, Lk, D], q_offset=qo, kv_valid_len=kvl,
+             ring_pos=ring_pos, **out[name])
+    d = out["serve_decode"]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:88",
             "launches": int(launches), "max_abs_err": max(errs["flash_attention"]),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-            "bound_by": d["bound_by"], "library_ms": d["library_ms"]}
+            "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+            "d256_decode": out["rg_decode_d256"], "d256_prefill": out["rg_prefill_d256"]}
 
 
-def _moe_timing(params, launches, errs):
+def _moe_timing(moe, launches, errs):
     """At the serve shape, on the model's own expert weights, one layer
     after another (2.4 GB in all, so every call finds its weights cold in
     L2, as the serve path does)."""
     name, E, C, D, Fd, _ = MOE_CASES[0]
     dt = torch.bfloat16
-    moe = params["layers"]["moe"]
     L = moe["wg"].shape[0]
     x = _randn((E, C, D), dt, seed=901)
     got = MG.moe_gmm(x, moe["wg"][0], moe["wu"][0], moe["wd"][0])
@@ -784,13 +1004,89 @@ def _moe_timing(params, launches, errs):
             "bound_by": by, "library_ms": None}
 
 
+def _ssd_timing(launches, errs):
+    """At mamba2-2.7b's full width, L = 1024 (4 chunks of 256), and at the
+    serve prefill (one chunk of 16); the first is the kernels-line row."""
+    out = {}
+    for name, B, L, H, P, N, chunk in (SSD_CASES[2], SSD_CASES[4]):
+        dt_ = torch.bfloat16
+        x, dt, A, Bm, Cm = ssd_inputs(B, L, H, P, N, dt_, seed=902)
+        xc, dtc, Bc, Cc = ssd_chunks(x, dt, Bm, Cm, chunk)
+        args = (xc, dtc, A, Bc, Cc)
+        got = SSD.ssd_intra_chunk(*args)
+        errs["ssd_intra_chunk"].append(max(
+            _held(g, w, dt_, f"ssd_intra_chunk timing {name}", TOL_SSD)
+            for g, w in zip(got, SSD.ssd_intra_chunk_plain(*args))))
+        ms = cuda_ms(lambda: SSD.ssd_intra_chunk(*args), iters=100, warmup=10)
+        plain_ms = cuda_ms(lambda: SSD.ssd_intra_chunk_plain(*args), iters=10, warmup=3)
+        ms2 = cuda_ms(lambda: SSD.ssd_intra_chunk(*args), iters=100, warmup=10)
+        _, nb, C, _, _ = xc.shape
+        BC = B * nb
+        tri = C * (C + 1) // 2                          # (t, s <= t) pairs per chunk
+        nbytes = (2 * B * L * H * P + 4 * B * L * H + 4 * H + 2 * 2 * B * L * N   # x, dt, A, B, C
+                  + 4 * BC * C * H * P + 4 * BC * H * P * N + 4 * BC * H)      # y, contrib, decay
+        nops = BC * tri * N * 2 + BC * H * (tri * P * 2 + C * P * N * 2)       # C.B^T, y, contrib
+        bound_ms, by = _bound(nbytes, nops, BF16_OPS_PER_S)
+        out[name] = dict(ms=min(ms, ms2), ms_runs=[ms, ms2], plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=nops)
+        emit("timing", name="ssd_intra_chunk", case=name, dtype="bfloat16",
+             x=list(xc.shape), N=N, library_ms=None, **out[name])
+    d = out["full_L1024"]
+    return {"name": "ssd_intra_chunk", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_intra_chunk.cu",
+            "replaces": "src/repro/kernels/ssd.py:65",
+            "launches": int(launches), "max_abs_err": max(errs["ssd_intra_chunk"]),
+            "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": None}
+
+
+def _rglru_timing(launches, errs):
+    """At recurrentgemma-9b's LRU width: a 2048-token prefill (the
+    kernels-line row) and the batch-4 decode step."""
+    out = {}
+    for name, B, L, W in RGLRU_CASES[2:]:
+        dt_ = torch.bfloat16
+        args = rglru_inputs(B, L, W, dt_, seed=903)
+        got = RG.rglru_scan(*args)
+        errs["rglru_scan"].append(max(_held(g, w, dt_, f"rglru_scan timing {name}")
+                                      for g, w in zip(got, RG.rglru_scan_plain(*args))))
+        ms = cuda_ms(lambda: RG.rglru_scan(*args), iters=100, warmup=10)
+        plain_ms = cuda_ms(lambda: RG.rglru_scan_plain(*args), iters=3 if L > 1 else 100,
+                           warmup=1 if L > 1 else 10)
+        ms2 = cuda_ms(lambda: RG.rglru_scan(*args), iters=100, warmup=10)
+        nbytes = 3 * 2 * B * L * W + 4 * W + 2 * B * W + 4 * B * L * W + 4 * B * W
+        nops = 16 * B * L * W        # gates, exps, sqrt and the update, per element
+        bound_ms, by = _bound(nbytes, nops, F32_OPS_PER_S)
+        out[name] = dict(ms=min(ms, ms2), ms_runs=[ms, ms2], plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=nops)
+        emit("timing", name="rglru_scan", case=name, dtype="bfloat16", x=[B, L, W],
+             library_ms=None, **out[name])
+    d = out["prefill_1x2048x4096"]
+    return {"name": "rglru_scan", "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru.py:47",
+            "launches": int(launches), "max_abs_err": max(errs["rglru_scan"]),
+            "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": None,
+            "decode": out["decode_4x1x4096"]}
+
+
 def phase_timing(problem, ladder_launches, serve, errs):
     kernels = []
     if problem is not None:
         kernels.append(_ladder_timing(problem, ladder_launches, errs))
-    if serve is not None:
-        kernels.append(_flash_timing(serve["launches"]["flash_attention"], errs))
-        kernels.append(_moe_timing(serve["params"], serve["launches"]["moe_gmm"], errs))
+    if serve:
+        by_arch = {arch: r["launches"] for arch, r in serve.items()}
+        total = {k: sum(n[k] for n in by_arch.values()) for k in COUNTED}
+        rows = [_flash_timing(total["flash_attention"], errs)]
+        if serve.get("granite_moe_1b"):
+            rows.append(_moe_timing(serve["granite_moe_1b"]["moe"], total["moe_gmm"], errs))
+        if serve.get("mamba2_2p7b"):
+            rows.append(_ssd_timing(total["ssd_intra_chunk"], errs))
+        if serve.get("recurrentgemma_9b"):
+            rows.append(_rglru_timing(total["rglru_scan"], errs))
+        for row in rows:
+            row["launches_by_arch"] = {a: n[row["name"]] for a, n in by_arch.items()}
+        kernels += rows
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
@@ -819,7 +1115,11 @@ def main():
         phase_equiv()
     if "profile" in only:
         phase_profile()
-    serve = phase_serve() if "serve" in only else None
+    serve = {}
+    if "serve" in only:
+        for arch in SERVE_ARCHS:
+            serve[arch] = phase_serve(arch)
+            torch.cuda.empty_cache()
     if "timing" in only:
         phase_timing(problem, launches, serve, errs)
     emit("done", seconds=time.perf_counter() - T_START)

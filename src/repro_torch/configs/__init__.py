@@ -24,13 +24,10 @@ ARCHS = (
 )
 
 #: archs whose config and model path the port carries
-PORTED = ("granite_moe_1b", "phi4_mini_3p8b")
+PORTED = ("granite_moe_1b", "phi4_mini_3p8b", "mamba2_2p7b", "recurrentgemma_9b")
 
 #: the ROADMAP item that ports each other arch
 UNPORTED = {
-    "mamba2_2p7b": "ROADMAP B3 (mamba2_2p7b serving with the SSD kernel)",
-    "recurrentgemma_9b": "ROADMAP B4 (recurrentgemma_9b serving with RG-LRU "
-                         "and the ring cache)",
     "gemma2_27b": "ROADMAP A9 (sliding-window and softcap layers)",
     "gemma3_4b": "ROADMAP A9 (sliding-window layers, qk-norm, local rope base)",
     "stablelm_12b": "ROADMAP A9 (dense stacks beyond phi4-mini)",

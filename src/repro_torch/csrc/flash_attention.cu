@@ -8,19 +8,23 @@
 //
 //   s[i, j] = scale * q[i] . k[j]             (float32)
 //   s       = softcap * tanh(s / softcap)     (softcap > 0)
-//   key j is valid iff j < kv_valid_len, and, with kpos = kv_offset + j and
-//   qpos = q_offset + i, kpos <= qpos (causal) and kpos > qpos - window
-//   (window > 0); an invalid entry's logit is -1e30
+//   key j's position kpos is kv_offset + j, or kv_positions[j] for a ring
+//   cache (a negative position marks an empty slot); with qpos = q_offset +
+//   i, key j is valid iff j < kv_valid_len, kpos >= 0 (ring), kpos <= qpos
+//   (causal) and kpos > qpos - window (window > 0); an invalid entry's logit
+//   is -1e30
 //   out[i]  = sum_j p[i, j] v[j] / max(sum_j p[i, j], 1e-30), online softmax,
 //             p rounded to v's dtype before the PV product (as the reference
 //             casts it), m / l / acc in float32, out in q's dtype.
 //
-// Layout (B, H, L, D), contiguous; the g = Hq / Hkv query heads of a KV head
-// share its K/V tiles.
+// Layout (B, H, L, D), contiguous, D <= 256; the g = Hq / Hkv query heads of
+// a KV head share its K/V tiles.
 //
 // Design: one block of 8 warps per (batch, KV head, 32 query rows); a query
 // row is a (head in group, query index) pair and each warp owns 4 rows, with
-// m, l and its D/32 accumulator columns in registers.  The block walks the
+// m, l and its D/32 accumulator columns in registers (the column count is a
+// template parameter: 4 for D <= 128, 8 for D <= 256, so the narrower heads
+// keep their register budget).  The block walks the
 // keys in tiles of 32, staged in shared memory as float32 (rows padded to
 // D + 1 so that lane j reads key j's row without bank conflicts).  Lane j
 // computes key j's logit for each row; the warp reduces max and sum by
@@ -28,10 +32,13 @@
 // its own columns of v_j.  Ragged Lq and Lk are masked in the kernel: no
 // padding copies.  Tiles wholly past kv_valid_len, past the block's last
 // causal position or before its first window position are skipped, so the
-// decode step reads only the valid rows of the cache.
+// decode step reads only the valid rows of the cache.  A ring cache's
+// positions are not monotone in j, so with kv_positions every tile is read
+// and masked key by key.
 //
-// Bound on this card: at the serve path's shapes (decode q (4, 16, 1, 64)
-// against a (4, 8, 128, 64) cache; prefill q (1, 16, 16, 64)) the kernel
+// Bound on this card: at the serve path's shapes (granite decode q (4, 16, 1,
+// 64) against a (4, 8, 128, 64) cache, prefill q (1, 16, 16, 64);
+// recurrentgemma q (4, 16, 1, 256) against a (4, 1, 128, 256) ring) the kernel
 // moves well under a megabyte and does a few MFLOP, so one launch is bound
 // by launch latency, and by bytes beyond that: skipping the invalid cache
 // rows is what the design does about bytes.  The matrix products run on the
@@ -55,8 +62,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 4;
 constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kBK = 32;                       // keys per tile: one per lane
-constexpr int kMaxD = 128;
-constexpr int kDPerLane = kMaxD / 32;
+constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -83,10 +89,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+// kDPerLane: accumulator columns per lane, D <= 32 * kDPerLane.
+template <typename T, int kDPerLane>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv,
+                 const T* __restrict__ v, const int* __restrict__ kv_positions,
+                 T* __restrict__ out, int Hq, int Hkv,
                  int Lq, int Lk, int D, int q_offset, int kv_offset,
                  int kv_valid, int causal, int window, float softcap,
                  float scale) {
@@ -128,10 +136,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi_min = (hg0 == hg1) ? row0 - hg0 * Lq : 0;
   const int qi_max = (hg0 == hg1) ? row_last - hg1 * Lq : Lq - 1;
   int key_end = min(Lk, kv_valid);
-  if (causal) key_end = min(key_end, q_offset + qi_max - kv_offset + 1);
   int key_begin = 0;
-  if (window > 0) key_begin = max(0, q_offset + qi_min - window + 1 - kv_offset);
-  key_begin = (key_begin / kBK) * kBK;
+  if (kv_positions == nullptr) {
+    if (causal) key_end = min(key_end, q_offset + qi_max - kv_offset + 1);
+    if (window > 0) key_begin = max(0, q_offset + qi_min - window + 1 - kv_offset);
+    key_begin = (key_begin / kBK) * kBK;
+  }
 
   float m_r[kRowsPerWarp];
   float l_r[kRowsPerWarp];
@@ -167,8 +177,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    const int kpos = kv_offset + t0 + lane;
     const bool in_tile = lane < tn;
+    int kpos = kv_offset + t0 + lane;
+    bool kv_ok = in_tile;
+    if (kv_positions != nullptr) {
+      kpos = in_tile ? kv_positions[t0 + lane] : -1;
+      kv_ok = kpos >= 0;
+    }
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       if (!live_r[r]) continue;  // warp-uniform
@@ -180,7 +195,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int d = 0; d < D; ++d) dot = fmaf(qrow[d], krow[d], dot);
         float sv = dot * scale;
         if (softcap > 0.f) sv = softcap * tanhf(sv / softcap);
-        bool ok = true;
+        bool ok = kv_ok;
         if (causal) ok = ok && (kpos <= qpos_r[r]);
         if (window > 0) ok = ok && (kpos > qpos_r[r] - window);
         if (ok) s = sv;
@@ -221,53 +236,68 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Lq, int Lk, int D, int q_offset, int kv_offset,
-           int kv_valid, int causal, int window, float softcap, float scale,
-           cudaStream_t stream) {
+template <typename T, int kDPerLane>
+int launch(const void* q, const void* k, const void* v, const int* kvp,
+           void* out, int B, int Hq, int Hkv, int Lq, int Lk, int D,
+           int q_offset, int kv_offset, int kv_valid, int causal, int window,
+           float softcap, float scale, cudaStream_t stream) {
   const int rows = (Hq / Hkv) * Lq;
   const dim3 grid((rows + kRows - 1) / kRows, B * Hkv);
   const size_t smem = sizeof(float) * (2 * kBK * (D + 1) + kRows * D);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<T, kDPerLane>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, kDPerLane><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Lq, Lk, D,
+      static_cast<const T*>(v), kvp, static_cast<T*>(out), Hq, Hkv, Lq, Lk, D,
       q_offset, kv_offset, kv_valid, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_d(const void* q, const void* k, const void* v, const int* kvp,
+             void* out, int B, int Hq, int Hkv, int Lq, int Lk, int D,
+             int q_offset, int kv_offset, int kv_valid, int causal, int window,
+             float softcap, float scale, cudaStream_t stream) {
+  if (D <= 128) {
+    return launch<T, 4>(q, k, v, kvp, out, B, Hq, Hkv, Lq, Lk, D, q_offset,
+                        kv_offset, kv_valid, causal, window, softcap, scale, stream);
+  }
+  return launch<T, 8>(q, k, v, kvp, out, B, Hq, Hkv, Lq, Lk, D, q_offset,
+                      kv_offset, kv_valid, causal, window, softcap, scale, stream);
 }
 
 }  // namespace
 
 // q, out: (B, Hq, Lq, D); k, v: (B, Hkv, Lk, D); all contiguous, one dtype:
-// dtype 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (or the error that refused it).
+// dtype 0 = float32, 1 = bfloat16.  kv_positions: null, or (Lk,) int32 key
+// positions (ring caches; negative = empty slot), which replace kv_offset.
+// Returns cudaGetLastError() after the launch (or the error that refused it).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int Hq, int Hkv, int Lq,
-                               int Lk, int D, int q_offset, int kv_offset,
-                               int kv_valid_len, int causal, int window,
-                               float softcap, float scale, int dtype,
-                               void* stream) {
+                               const void* kv_positions, void* out, int B,
+                               int Hq, int Hkv, int Lq, int Lk, int D,
+                               int q_offset, int kv_offset, int kv_valid_len,
+                               int causal, int window, float softcap,
+                               float scale, int dtype, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Lq <= 0 || Lk <= 0 ||
       D <= 0 || D > kMaxD || kv_valid_len <= 0 ||
       static_cast<long long>(B) * Hkv > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* kvp = static_cast<const int*>(kv_positions);
   if (dtype == 0) {
-    return launch<float>(q, k, v, out, B, Hq, Hkv, Lq, Lk, D, q_offset,
-                         kv_offset, kv_valid_len, causal, window, softcap,
-                         scale, s);
+    return launch_d<float>(q, k, v, kvp, out, B, Hq, Hkv, Lq, Lk, D, q_offset,
+                           kv_offset, kv_valid_len, causal, window, softcap,
+                           scale, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Lq, Lk, D, q_offset,
-                                 kv_offset, kv_valid_len, causal, window,
-                                 softcap, scale, s);
+    return launch_d<__nv_bfloat16>(q, k, v, kvp, out, B, Hq, Hkv, Lq, Lk, D,
+                                   q_offset, kv_offset, kv_valid_len, causal,
+                                   window, softcap, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,11 +7,13 @@ models call and ``ref.py`` holds the plain oracles.
 
 Kernels:
 * ``flash_attention`` — GQA flash attention (causal, sliding window,
-  logit softcap, query/key offsets and a ragged valid key count).
+  logit softcap, query/key offsets, a ragged valid key count and ring
+  caches' key positions; head dim up to 256).
 * ``moe_gmm`` — the MoE expert FFN over capacity buckets, gate-up-down
   fused so the hidden block stays on chip.
-
-The SSD and RG-LRU kernels are not ported yet (ROADMAP B3, B4).
+* ``ssd`` — Mamba-2's SSD intra-chunk part (``ops.ssd_chunked`` adds
+  the inter-chunk scan).
+* ``rglru`` — the RG-LRU gates and recurrence in one pass.
 """
 from . import ops, ref
 

@@ -6,13 +6,15 @@ The kernel computes the forward function of
 :func:`repro_torch.models.common.chunked_attention` (the reference's
 ``models/common.py`` flash algorithm), which is also its plain version:
 a query at ``q_offset + i`` attends to the key at ``kv_offset + j`` for
-``j < kv_valid_len``, causally and within ``window`` when ``window >
-0``, with logits ``scale * q.k`` (softcapped when ``softcap > 0``).
+``j < kv_valid_len`` (or at ``kv_positions[j]``, a ring cache's map,
+where a negative position marks an empty slot), causally and within
+``window`` when ``window > 0``, with logits ``scale * q.k``
+(softcapped when ``softcap > 0``).  Head dim up to 256.
 
 The wrapper makes ``q`` contiguous (the model hands it a transposed
-view); ``k`` and ``v`` must be contiguous already (the model passes
-one layer of the stacked KV cache, which is).  The kernel allocates
-nothing and runs on PyTorch's current stream.
+view) and ``kv_positions`` int32; ``k`` and ``v`` must be contiguous
+already (the model passes one layer of the stacked KV cache, which is).
+The kernel allocates nothing and runs on PyTorch's current stream.
 """
 from __future__ import annotations
 
@@ -27,11 +29,12 @@ from ..models.common import chunked_attention
 __all__ = ["flash_attention", "flash_attention_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 128
+_MAX_D = 256
 
 _SIG = {
     "flash_attention": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -43,16 +46,17 @@ _SIG = {
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
                           scale: Optional[float] = None, q_offset=0,
-                          kv_offset=0, kv_valid_len=None):
+                          kv_offset=0, kv_valid_len=None, kv_positions=None):
     """The plain version: blockwise online softmax in torch."""
     return chunked_attention(
         q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
         q_offset=q_offset, kv_offset=kv_offset, kv_valid_len=kv_valid_len,
+        kv_positions=kv_positions,
     )
 
 
 def _flash_attention_cuda(q, k, v, *, causal, window, softcap, scale,
-                          q_offset, kv_offset, kv_valid_len):
+                          q_offset, kv_offset, kv_valid_len, kv_positions=None):
     """Launch ``csrc/flash_attention.cu`` on the current stream."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
@@ -78,12 +82,22 @@ def _flash_attention_cuda(q, k, v, *, causal, window, softcap, scale,
     valid = Lk if kv_valid_len is None else min(int(kv_valid_len), Lk)
     if valid < 1:
         raise ValueError(f"kv_valid_len must be >= 1, got {kv_valid_len}")
+    kvp = None
+    if kv_positions is not None:
+        if (kv_positions.device != q.device or kv_positions.dtype.is_floating_point
+                or tuple(kv_positions.shape) != (Lk,)):
+            raise ValueError(f"kv_positions must be ({Lk},) integers on {q.device}, got "
+                             f"{tuple(kv_positions.shape)} {kv_positions.dtype} on "
+                             f"{kv_positions.device}")
+        kvp = kv_positions.to(torch.int32).contiguous()
+        valid = Lk
     q = q.contiguous()
     sc = scale if scale is not None else D ** -0.5
     lib = _cuda.load("flash_attention", _SIG)
     out = torch.empty_like(q)
     err = lib.flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if kvp is None else kvp.data_ptr(), out.data_ptr(),
         B, Hq, Hkv, Lq, Lk, D,
         int(q_offset), int(kv_offset), valid,
         int(bool(causal)), int(window), float(softcap), float(sc),
@@ -97,13 +111,14 @@ def _flash_attention_cuda(q, k, v, *, causal, window, softcap, scale,
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale: Optional[float] = None, q_offset=0, kv_offset=0,
-                    kv_valid_len=None):
+                    kv_valid_len=None, kv_positions=None):
     """Attention on whatever device ``q`` lies on: the CUDA kernel for a
     CUDA tensor (raising if it cannot build or launch), the plain
     version for a CPU tensor.  ``flash_attention.launches`` counts
     kernel launches."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
-              q_offset=q_offset, kv_offset=kv_offset, kv_valid_len=kv_valid_len)
+              q_offset=q_offset, kv_offset=kv_offset, kv_valid_len=kv_valid_len,
+              kv_positions=kv_positions)
     if q.device.type == "cuda":
         return _flash_attention_cuda(q, k, v, **kw)
     if q.device.type != "cpu":

@@ -2,7 +2,8 @@
 
 Runs the continuous-batching engine on the reduced config with a burst
 of synthetic requests, on the card unless ``--device cpu`` is given.
-``chip_smoke.py`` drives the same engine at granite-moe-1b's full width.
+``chip_smoke.py`` drives the same engine at full width for granite-moe-1b,
+mamba2-2.7b and recurrentgemma-9b.
 """
 from __future__ import annotations
 

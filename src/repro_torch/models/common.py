@@ -101,7 +101,7 @@ def chunked_attention(
     q_offset: int = 0,          # absolute position of q[..., 0, :]
     kv_offset: int = 0,         # absolute position of k[..., 0, :]
     kv_valid_len: Optional[int] = None,  # #valid kv entries (padded caches)
-    kv_positions=None,          # ring caches: not ported yet
+    kv_positions: Optional[torch.Tensor] = None,  # (Lk,) ring positions; < 0 empty
     block: int = 1024,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
@@ -112,14 +112,11 @@ def chunked_attention(
     ``acc / max(l, 1e-30)`` in ``q``'s dtype).
 
     GQA (Hq a multiple of Hkv), causal masking, sliding windows, logit
-    softcap and padded decode caches.  This is the plain version of the
-    CUDA flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`).
+    softcap, padded decode caches and ring-buffer position maps
+    (``kv_positions`` replaces ``kv_offset`` and ``kv_valid_len``).  This
+    is the plain version of the CUDA flash-attention kernel
+    (:mod:`repro_torch.kernels.flash_attention`).
     """
-    if kv_positions is not None:
-        raise NotImplementedError(
-            "kv_positions (ring caches) are not ported yet: ROADMAP B4 "
-            "(recurrentgemma_9b serving)"
-        )
     b, hq, lq, d = q.shape
     _, hkv, lk, _ = k.shape
     g = hq // hkv
@@ -135,9 +132,13 @@ def chunked_attention(
         v = F.pad(v, (0, 0, 0, pad))
 
     qpos = q_offset + torch.arange(lq, dtype=torch.int64, device=dev)
-    valid = lk if kv_valid_len is None else int(kv_valid_len)
-    idx = torch.arange(lk, dtype=torch.int64, device=dev)
-    kvpos = torch.where(idx < valid, kv_offset + idx, torch.full_like(idx, _IMAX))
+    if kv_positions is not None:
+        kvpos = kv_positions.to(device=dev, dtype=torch.int64)
+        kvpos = torch.where(kvpos < 0, torch.full_like(kvpos, _IMAX), kvpos)
+    else:
+        valid = lk if kv_valid_len is None else int(kv_valid_len)
+        idx = torch.arange(lk, dtype=torch.int64, device=dev)
+        kvpos = torch.where(idx < valid, kv_offset + idx, torch.full_like(idx, _IMAX))
     if pad:
         kvpos = F.pad(kvpos, (0, pad), value=_IMAX)
 

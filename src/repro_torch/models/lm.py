@@ -1,17 +1,16 @@
-"""Decoder LM for the dense and MoE attention stacks: ``init_params``
+"""Decoder LM for the dense, MoE, Mamba-2 and RG-LRU hybrid stacks: ``init_params``
 and ``LM`` with ``embed`` / ``backbone`` / ``logits_last`` /
 ``init_cache`` / ``prefill`` / ``decode_step``.
 
 Parameters are a nested dict of *stacked* per-layer tensors ``(L,
 ...)``, the reference's layout, so a parameter tree converts leaf for
 leaf (:mod:`repro_torch.models.convert`).  The reference's ``lax.scan``
-over layers is a Python loop over those stacks; the KV cache is
+over layers is a Python loop over those stacks; the caches are
 written in place, one layer view at a time.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the Mamba-2 stack (B3), the RG-LRU hybrid stack (B4), MLA and
-leading dense layers (A9), the codebook and patch frontends (A9), and
-the training loss (A10).
+item: MLA and leading dense layers (A9), the codebook and patch
+frontends (A9), and the training loss (A10).
 """
 from __future__ import annotations
 
@@ -26,7 +25,9 @@ from .._device import resolve_device
 from .attention import attn_apply, attn_init
 from .common import dense_init, gated_mlp, gated_mlp_init, rms_norm
 from .config import ModelConfig
+from .mamba2 import init_ssm_state, mamba_apply, mamba_init
 from .moe import moe_apply, moe_init
+from .rglru import init_lru_state, rglru_apply, rglru_init
 
 __all__ = ["LM", "init_params", "check_supported"]
 
@@ -34,11 +35,7 @@ __all__ = ["LM", "init_params", "check_supported"]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for a
     config whose stack the port does not carry yet."""
-    if cfg.family == "ssm":
-        item = "B3 (mamba2_2p7b serving with the SSD kernel)"
-    elif cfg.family == "hybrid":
-        item = "B4 (recurrentgemma_9b serving with the RG-LRU kernel and ring cache)"
-    elif cfg.mla:
+    if cfg.mla:
         item = "A9 (MLA attention, deepseek_v2_236b)"
     elif cfg.num_experts and (cfg.first_dense_layers or cfg.num_shared_experts):
         item = "A9 (leading dense layers and shared experts, deepseek_v2_236b)"
@@ -72,6 +69,14 @@ def _layer_thetas(cfg: ModelConfig) -> np.ndarray:
     )
 
 
+def _hybrid_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(#lru layers, #attention layers) for the 1:k hybrid pattern."""
+    k = cfg.lru_blocks_per_attn
+    n_units = cfg.num_layers // (k + 1)
+    rem = cfg.num_layers - n_units * (k + 1)   # trailing lru blocks
+    return n_units * k + rem, n_units
+
+
 def _take(tree, i: int):
     """Layer ``i`` of a stacked parameter tree (views, no copies)."""
     if isinstance(tree, dict):
@@ -101,6 +106,23 @@ def init_params(cfg: ModelConfig, *, device="cuda",
                             device=dev),
         "final_norm": torch.ones((d,), dtype=dt, device=dev),
     }
+    if cfg.family == "ssm":
+        params["layers"] = {
+            "norm": torch.ones((L, d), dtype=dt, device=dev),
+            "mamba": mamba_init(generator, cfg, device=dev, stack=L),
+        }
+        return params
+    if cfg.family == "hybrid":
+        n_lru, n_att = _hybrid_layout(cfg)
+        for key, n, core, init in (("lru_layers", n_lru, "lru", rglru_init),
+                                   ("attn_layers", n_att, "attn", attn_init)):
+            params[key] = {
+                "ln1": torch.ones((n, d), dtype=dt, device=dev),
+                "ln2": torch.ones((n, d), dtype=dt, device=dev),
+                core: init(generator, cfg, device=dev, stack=n),
+                "mlp": gated_mlp_init(generator, d, cfg.d_ff, dt, device=dev, stack=n),
+            }
+        return params
     layers = {
         "ln1": torch.ones((L, d), dtype=dt, device=dev),
         "ln2": torch.ones((L, d), dtype=dt, device=dev),
@@ -132,6 +154,15 @@ class LM:
     def backbone(self, params, x: torch.Tensor, *, positions: torch.Tensor,
                  cache: Optional[Dict] = None, cache_pos: Optional[int] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+        if self.cfg.family == "ssm":
+            x, cache = self._ssm_stack(params, x, cache)
+        elif self.cfg.family == "hybrid":
+            x, cache = self._hybrid_stack(params, x, positions, cache, cache_pos)
+        else:
+            x, cache = self._attn_stack(params, x, positions, cache, cache_pos)
+        return rms_norm(x, params["final_norm"]), cache
+
+    def _attn_stack(self, params, x, positions, cache, cache_pos):
         cfg = self.cfg
         windows, thetas = _layer_windows(cfg), _layer_thetas(cfg)
         moe = bool(cfg.num_experts)
@@ -147,7 +178,57 @@ class LM:
             x = x + out
             h = rms_norm(x, layer["ln2"])
             x = x + (moe_apply(layer["moe"], h, cfg) if moe else gated_mlp(layer["mlp"], h))
-        return rms_norm(x, params["final_norm"]), cache
+        return x, cache
+
+    def _ssm_stack(self, params, x, cache):
+        """Mamba-2 layers.  A decode step's state is float32 (the
+        reference's ``_ssm_step`` returns it so, and its layer scan stacks
+        it), so the cache's SSM planes turn float32 at the first decode
+        step and stay so, as the reference's do."""
+        if cache is not None and x.shape[1] == 1 and cache["ssm"].dtype != torch.float32:
+            cache["ssm"] = cache["ssm"].float()
+        for i in range(self.cfg.num_layers):
+            layer = _take(params["layers"], i)
+            h = rms_norm(x, layer["norm"])
+            state = None if cache is None else {"ssm": cache["ssm"][i],
+                                                "conv": cache["conv"][i]}
+            out, new = mamba_apply(layer["mamba"], h, self.cfg, state=state)
+            if cache is not None:
+                cache["ssm"][i] = new["ssm"]
+                cache["conv"][i] = new["conv"]
+            x = x + out
+        return x, cache
+
+    def _hybrid_stack(self, params, x, positions, cache, cache_pos):
+        """Units of ``k`` RG-LRU blocks and one local-attention block on
+        the ring cache, then the pattern's trailing RG-LRU blocks."""
+        cfg = self.cfg
+        k = cfg.lru_blocks_per_attn
+        n_lru, n_att = _hybrid_layout(cfg)
+        order = []
+        for u in range(n_att):
+            order += [("lru", u * k + j) for j in range(k)] + [("attn", u)]
+        order += [("lru", i) for i in range(n_att * k, n_lru)]
+        for kind, i in order:
+            if kind == "lru":
+                layer = _take(params["lru_layers"], i)
+                state = None if cache is None else {"h": cache["h"][i],
+                                                    "conv": cache["conv"][i]}
+                out, new = rglru_apply(layer["lru"], rms_norm(x, layer["ln1"]), cfg, state)
+                if cache is not None:
+                    cache["h"][i] = new["h"]
+                    cache["conv"][i] = new["conv"]
+            else:
+                layer = _take(params["attn_layers"], i)
+                out, _ = attn_apply(
+                    layer["attn"], rms_norm(x, layer["ln1"]), cfg, positions=positions,
+                    window=cfg.window, theta=cfg.rope_theta,
+                    cache=(cache["k"][i], cache["v"][i]) if cache is not None else None,
+                    cache_pos=cache_pos, ring=True,
+                )
+            x = x + out
+            x = x + gated_mlp(layer["mlp"], rms_norm(x, layer["ln2"]))
+        return x, cache
 
     # -- heads ---------------------------------------------------------------
     def logits_last(self, params, x_last: torch.Tensor) -> torch.Tensor:
@@ -161,8 +242,17 @@ class LM:
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device="cuda") -> Dict:
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
         dev = resolve_device(device)
+        if cfg.family == "ssm":
+            return init_ssm_state(cfg, batch, cfg.num_layers, dev)
+        if cfg.family == "hybrid":
+            n_lru, n_att = _hybrid_layout(cfg)
+            win = min(max_len, cfg.window) if cfg.window else max_len
+            shape = (n_att, batch, cfg.num_kv_heads, win, cfg.head_dim)
+            return {**init_lru_state(cfg, batch, n_lru, dev),
+                    "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)}
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
         return {
             "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),

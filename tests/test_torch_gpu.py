@@ -1,5 +1,6 @@
 """The port on the card: the CUDA kernels (ladder grant, flash attention,
-MoE grouped matmul) against their plain versions, the torch sampler,
+MoE grouped matmul, SSD intra-chunk, RG-LRU scan) against their plain
+versions, the torch sampler,
 round loop, LM and serving engine on CUDA against their CPU runs.
 Every test here needs a CUDA device and skips without one.
 
@@ -21,6 +22,9 @@ from repro_torch.core.sim.batch import sample_trace_batch
 from repro_torch.core.sim.trace import build_skeleton
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import moe_gmm as MG
+from repro_torch.kernels import ops
+from repro_torch.kernels import rglru as RG
+from repro_torch.kernels import ssd as SSD
 from repro_torch.models import LM, init_params
 from repro_torch.scenarios import ScenarioSpec, get_scenario, run
 from repro_torch.scenarios import runner
@@ -160,11 +164,102 @@ def test_moe_gmm_kernel_matches_plain(cuda, dtype, E, C, D, F, scale):
     torch.testing.assert_close(got.float(), MG.moe_gmm_plain(x, wg, wu, wd).float(), **TOL[dtype])
 
 
+#: tests/test_kernels.py's SSD tolerances
+TOL_SSD = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, nb, C, H, P, N", [
+    (1, 4, 16, 4, 16, 16),          # kernel-test sweep
+    (2, 3, 32, 8, 32, 32),
+    (1, 4, 256, 80, 64, 128),       # mamba2-2.7b full width, L = 1024
+    (1, 1, 16, 80, 64, 128),        # the serve prefill
+    (2, 2, 40, 3, 8, 24),           # ragged tiles, odd head count
+    (1, 1, 64, 2, 128, 256),        # widest P and N
+])
+def test_ssd_intra_chunk_kernel_matches_plain(cuda, dtype, B, nb, C, H, P, N):
+    x = _randn((B, nb, C, H, P), dtype, 8)
+    dt = torch.nn.functional.softplus(_randn((B, nb, C, H), torch.float32, 9))
+    A = -torch.exp(_randn((H,), torch.float32, 10, 0.3))
+    Bm, Cm = _randn((B, nb, C, N), dtype, 11), _randn((B, nb, C, N), dtype, 12)
+    before = SSD.ssd_intra_chunk.launches
+    got = SSD.ssd_intra_chunk(x, dt, A, Bm, Cm)
+    assert SSD.ssd_intra_chunk.launches == before + 1
+    torch.cuda.synchronize()
+    for g, w in zip(got, SSD.ssd_intra_chunk_plain(x, dt, A, Bm, Cm)):
+        torch.testing.assert_close(g, w, **TOL_SSD[dtype])
+
+
+@pytest.mark.parametrize("L", [16, 600, 1024])
+def test_ssd_chunked_on_cuda_matches_cpu(cuda, L):
+    g = torch.Generator().manual_seed(L)
+    H, P, N = 8, 64, 128
+    x = torch.randn((1, L, H, P), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((1, L, H), generator=g))
+    A = -torch.exp(0.3 * torch.randn((H,), generator=g))
+    Bm, Cm = torch.randn((1, L, 1, N), generator=g), torch.randn((1, L, 1, N), generator=g)
+    s0 = 0.1 * torch.randn((1, H, P, N), generator=g)
+    want = ops.ssd_chunked(x, dt, A, Bm, Cm, chunk=256, init_state=s0)
+    got = ops.ssd_chunked(*(t.cuda() for t in (x, dt, A, Bm, Cm)), chunk=256,
+                          init_state=s0.cuda())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, **TOL_SSD[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, L, W", [
+    (1, 64, 64), (2, 48, 128),      # kernel-test sweep
+    (1, 2048, 4096),                # recurrentgemma-9b prefill
+    (4, 1, 4096),                   # its decode step
+    (3, 13, 100),                   # ragged width and length
+])
+def test_rglru_kernel_matches_plain(cuda, dtype, B, L, W):
+    x, r, i = (_randn((B, L, W), dtype, s) for s in (13, 14, 15))
+    lam = _randn((W,), torch.float32, 16)
+    h0 = _randn((B, W), dtype, 17)
+    before = RG.rglru_scan.launches
+    got = RG.rglru_scan(x, r, i, lam, h0)
+    assert RG.rglru_scan.launches == before + 1
+    torch.cuda.synchronize()
+    for g, w in zip(got, RG.rglru_scan_plain(x, r, i, lam, h0)):
+        torch.testing.assert_close(g, w, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, Hq, Hkv, W, D, pos, window", [
+    (4, 16, 1, 128, 256, 24, 2048),     # recurrentgemma decode, ring part-filled
+    (4, 16, 1, 128, 256, 300, 2048),    # wrapped
+    (2, 8, 2, 64, 64, 150, 48),         # window inside the ring, D <= 128
+])
+def test_flash_attention_kernel_with_ring_positions(cuda, dtype, B, Hq, Hkv, W, D, pos, window):
+    q = _randn((B, Hq, 1, D), dtype, 18)
+    k, v = _randn((B, Hkv, W, D), dtype, 19), _randn((B, Hkv, W, D), dtype, 20)
+    idx = torch.arange(W, dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, window=window, q_offset=pos,
+              kv_positions=pos - torch.remainder(pos - idx, W))
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), FA.flash_attention_plain(q, k, v, **kw).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_d256_prefill(cuda, dtype):
+    q = _randn((1, 16, 16, 256), dtype, 21)
+    k, v = _randn((1, 1, 16, 256), dtype, 22), _randn((1, 1, 16, 256), dtype, 23)
+    kw = dict(causal=True, window=2048, q_offset=0, kv_offset=0)
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), FA.flash_attention_plain(q, k, v, **kw).float(),
+                               **TOL[dtype])
+
+
 def _to(tree, device):
     return {k: _to(v, device) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(device)
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_1b", "phi4_mini_3p8b"])
+@pytest.mark.parametrize("arch", ["granite_moe_1b", "phi4_mini_3p8b", "mamba2_2p7b",
+                                  "recurrentgemma_9b"])
 def test_lm_on_cuda_matches_cpu(cuda, arch):
     cfg = get_config(arch, reduced=True)
     p_cpu = init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
@@ -173,15 +268,19 @@ def test_lm_on_cuda_matches_cpu(cuda, arch):
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 10)))
     c_cpu, c_gpu = m.init_cache(2, 32, "cpu"), m.init_cache(2, 32, "cuda")
     a, c_cpu = m.prefill(p_cpu, {"tokens": toks[:, :8]}, c_cpu)
-    n0 = FA.flash_attention.launches
+    counted = {"ssm": SSD.ssd_intra_chunk, "hybrid": RG.rglru_scan}.get(
+        cfg.family, FA.flash_attention)
+    n0 = counted.launches
     b, c_gpu = m.prefill(p_gpu, {"tokens": toks[:, :8].cuda()}, c_gpu)
-    assert FA.flash_attention.launches - n0 == cfg.num_layers
+    # one launch per layer that runs the kernel (the hybrid's 4 of 5 are LRU)
+    assert counted.launches - n0 == (4 if cfg.family == "hybrid" else cfg.num_layers)
     torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
     for pos in (8, 9):
         a, c_cpu = m.decode_step(p_cpu, {"tokens": toks[:, pos:pos + 1]}, c_cpu, pos)
         b, c_gpu = m.decode_step(p_gpu, {"tokens": toks[:, pos:pos + 1].cuda()}, c_gpu, pos)
         torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(c_gpu["k"].cpu(), c_cpu["k"], rtol=1e-4, atol=1e-4)
+    for key in c_cpu:
+        torch.testing.assert_close(c_gpu[key].cpu(), c_cpu[key], rtol=1e-4, atol=1e-4)
 
 
 def test_serving_engine_on_cuda_matches_cpu_tokens(cuda):

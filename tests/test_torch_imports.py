@@ -22,6 +22,8 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch._cuda\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.models.convert\n"
         "import repro_torch.kernels, repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.kernels.ssd, repro_torch.kernels.rglru\n"
+        "import repro_torch.models.mamba2, repro_torch.models.rglru\n"
         "import repro_torch.serving, repro_torch.serving.colocated, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -139,14 +141,29 @@ def test_serving_engine_without_device_raises_when_cuda_absent(no_cuda):
         serve.main(["--arch", "granite_moe_1b"])
 
 
+#: items the port has carried since these cases were written (B3: mamba2
+#: and the SSD kernel, B4: recurrentgemma, the RG-LRU kernel and the ring
+#: cache); their cases now hold that the same calls succeed
+PORTED_ITEMS = ("B3", "B4")
+
+
 @pytest.mark.parametrize("arch, item", [
     ("mamba2_2p7b", "B3"), ("recurrentgemma_9b", "B4"), ("deepseek_v2_236b", "A9"),
     ("gemma2_27b", "A9"), ("gemma3_4b", "A9"), ("stablelm_12b", "A9"),
     ("phi3_vision_4p2b", "A9"), ("musicgen_large", "A9"),
 ])
 def test_unported_archs_name_their_roadmap_item(arch, item):
+    import dataclasses
+
     from repro_torch.configs import get_config
 
+    if item in PORTED_ITEMS:
+        from repro.configs import get_config as ref_config
+
+        for reduced in (False, True):
+            assert dataclasses.asdict(get_config(arch, reduced=reduced)) == \
+                dataclasses.asdict(ref_config(arch, reduced=reduced))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         get_config(arch)
 
@@ -155,8 +172,23 @@ def test_unported_archs_name_their_roadmap_item(arch, item):
 def test_unported_kernels_name_their_roadmap_item(op, item):
     from repro_torch.kernels import ops
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(ops, op)()
+    assert item in PORTED_ITEMS
+    g = torch.Generator().manual_seed(0)
+    if op == "ssd_chunked":
+        x = torch.randn(2, 20, 3, 8, generator=g)
+        y, state = ops.ssd_chunked(
+            x, torch.rand(2, 20, 3, generator=g), -torch.rand(3, generator=g),
+            torch.randn(2, 20, 1, 16, generator=g), torch.randn(2, 20, 1, 16, generator=g),
+            chunk=8,
+        )
+        assert y.shape == x.shape and state.shape == (2, 3, 8, 16)
+    else:
+        x = torch.randn(2, 7, 16, generator=g)
+        y, h_last = ops.rglru_scan(x, torch.randn(2, 7, 16, generator=g),
+                                   torch.randn(2, 7, 16, generator=g),
+                                   torch.randn(16, generator=g), torch.zeros(2, 16))
+        assert y.shape == x.shape and torch.equal(h_last, y[:, -1])
+    assert bool(torch.isfinite(y).all())
 
 
 def test_unported_model_branches_name_their_roadmap_item():
@@ -170,5 +202,8 @@ def test_unported_model_branches_name_their_roadmap_item():
         (dict(family="ssm"), "B3"), (dict(family="hybrid"), "B4"), (dict(mla=True), "A9"),
         (dict(num_codebooks=4), "A9"), (dict(num_patches=16), "A9"),
     ]:
+        if item in PORTED_ITEMS:
+            assert LM(dataclasses.replace(base, **change)).cfg.family == change["family"]
+            continue
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             LM(dataclasses.replace(base, **change))

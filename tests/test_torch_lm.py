@@ -211,7 +211,8 @@ def test_params_from_reference_refuses_a_wrong_tree():
 
 
 def test_serve_launcher_runs_on_cpu(capsys):
-    port_serve.main(["--arch", "granite_moe_1b", "--device", "cpu", "--requests", "3",
-                     "--max-new", "4"])
-    out = capsys.readouterr().out
-    assert "3 requests, 12 tokens" in out and "on cpu" in out
+    for arch in ("granite_moe_1b", "mamba2_2p7b", "recurrentgemma_9b"):
+        port_serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                         "--max-new", "4"])
+        out = capsys.readouterr().out
+        assert "3 requests, 12 tokens" in out and "on cpu" in out and arch in out

@@ -100,9 +100,14 @@ def test_chunked_attention_with_offsets_matches_reference(case):
 
 
 def test_ring_positions_name_their_roadmap_item():
-    q = torch.zeros(1, 1, 1, 4)
-    with pytest.raises(NotImplementedError, match="B4"):
-        chunked_attention(q, q, q, kv_positions=torch.zeros(1, dtype=torch.int64))
+    """Ring positions (ROADMAP B4) are ported: a negative position masks
+    its key, so one valid key among empty slots takes all the weight."""
+    q = torch.ones(1, 1, 1, 4)
+    k = torch.ones(1, 1, 3, 4)
+    v = torch.arange(12.0).reshape(1, 1, 3, 4)
+    out = chunked_attention(q, k, v, q_offset=5,
+                            kv_positions=torch.tensor([-3, 5, -1], dtype=torch.int64))
+    assert torch.equal(out, v[:, :, 1:2])
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +152,7 @@ def test_dispatch_takes_plain_versions_on_cpu_only():
     (torch.zeros(1, 2, 3, 8, dtype=torch.float64), torch.zeros(1, 1, 3, 8),
      torch.zeros(1, 1, 3, 8), {}, TypeError),
     (torch.zeros(1, 3, 3, 8), torch.zeros(1, 2, 3, 8), torch.zeros(1, 2, 3, 8), {}, ValueError),
-    (torch.zeros(1, 2, 3, 256), torch.zeros(1, 1, 3, 256), torch.zeros(1, 1, 3, 256), {},
+    (torch.zeros(1, 2, 3, 512), torch.zeros(1, 1, 3, 512), torch.zeros(1, 1, 3, 512), {},
      ValueError),
     (torch.zeros(1, 2, 3, 8), torch.zeros(1, 1, 8, 3).transpose(2, 3),
      torch.zeros(1, 1, 3, 8), {}, ValueError),
