@@ -34,6 +34,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from .hardware import HardwareModel
 from .workload import SensorTask, Task, Workflow
 
@@ -473,7 +474,7 @@ def chain_tail_composition(
     q: float,
     num_samples: int = 20000,
     seed: int = 0,
-    device: str = "cpu",
+    device: str = "cuda",
 ) -> Dict[str, float]:
     """Quantify the *tail-composition headroom* (paper §II-C3 scope note).
 
@@ -484,9 +485,10 @@ def chain_tail_composition(
     ``mc_q``, and headroom = 1 - mc_q/sum_q.
 
     One batched sample per task from a generator seeded with ``seed``,
-    summed; ``device`` places the draws (a host-side analysis, so the
-    CPU is its default).
+    summed; ``device`` places the draws: the card unless the caller
+    names the CPU (raises without a card, like every entry point).
     """
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     total = torch.zeros((num_samples,), dtype=torch.float64, device=device)

@@ -15,18 +15,29 @@ The wrapper makes ``q`` contiguous (the model hands it a transposed
 view) and ``kv_positions`` int32; ``k`` and ``v`` must be contiguous
 already (the model passes one layer of the stacked KV cache, which is).
 The kernel allocates nothing and runs on PyTorch's current stream.
+
+:func:`flash_plan` picks the kernel's block design and its split-KV
+plan (flash-decoding) from the shapes and the card's SM count: when the
+blocks over (query rows, batch, KV head) cannot fill the card, the keys
+are cut into ranges, one block per range writes a float32 partial
+``(o, m, l)`` to scratch allocated here, and a second kernel merges the
+ranges in order.  :func:`flash_partial_plain` and
+:func:`flash_merge_plain` are that algebra in plain torch.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from .. import _cuda
-from ..models.common import chunked_attention
+from ..models.common import NEG_INF, _apply_softcap, chunked_attention
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["FlashPlan", "flash_attention", "flash_attention_plain", "flash_merge_plain",
+           "flash_partial_plain", "flash_plan", "split_ranges"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
@@ -34,14 +45,101 @@ _MAX_D = 256
 _SIG = {
     "flash_attention": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ]),
 }
+#: most key ranges one call splits into (the merge kernel's limit)
+MAX_SPLITS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How the kernel covers one call: ``path`` "mma" (bf16 on the tensor
+    cores) or "fma" (CUDA cores: float32, or a bf16 width that is not a
+    multiple of 8); ``block_rows`` query rows and tiles of ``block_keys``
+    keys per block, ``row_tiles`` blocks over a KV head's rows; ``splits``
+    key ranges of ``keys_per_split`` keys from ``key_base``."""
+
+    path: str
+    block_rows: int
+    block_keys: int
+    row_tiles: int
+    key_base: int
+    keys_per_split: int
+    splits: int
+
+    def blocks(self, B: int, Hkv: int) -> int:
+        return self.row_tiles * B * Hkv * self.splits
+
+
+def flash_plan(dtype, B, Hq, Hkv, Lq, Lk, D, *, n_sm, causal=True, window=0,
+               q_offset=0, kv_offset=0, kv_valid_len=None, ring=False,
+               aligned=True) -> FlashPlan:
+    """The kernel's block design and split-KV plan for one call.
+
+    The keys any query can see, ``[key_base, end)`` (the whole ring with
+    ``ring``), are cut into ranges of whole tiles only when the blocks over
+    (row tiles, B, Hkv) number fewer than ``n_sm``: then into as many
+    ranges as fill the SMs, at most one per tile and ``MAX_SPLITS``.
+    The kernel takes ``block_rows`` and ``block_keys`` from the plan; its
+    launcher refuses keys per tile other than the instantiated tile
+    (``MmaTile::kBN``, ``kFmaBK``) and rows other than 16..64 in steps of
+    16 (tensor cores) or 32 (CUDA cores)."""
+    return _plan(dtype, B, Hq, Hkv, Lq, Lk, D, n_sm, causal, window, q_offset, kv_offset,
+                 kv_valid_len, ring, aligned)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(dtype, B, Hq, Hkv, Lq, Lk, D, n_sm, causal, window, q_offset, kv_offset,
+          kv_valid_len, ring, aligned) -> FlashPlan:
+    """``flash_plan``, cached on positional arguments (the wrapper's
+    per-call path)."""
+    rows = (Hq // Hkv) * Lq
+    if dtype == torch.bfloat16 and D % 8 == 0 and aligned:
+        path, block_rows = "mma", 16 * min(4, -(-rows // 16))
+        bk = 32 if D > 128 else 64
+    else:
+        path, block_rows, bk = "fma", 32, 32
+    lo, hi = 0, Lk
+    if not ring:
+        hi = min(Lk, Lk if kv_valid_len is None else int(kv_valid_len))
+        if causal:
+            hi = min(hi, q_offset + Lq - kv_offset)
+        if window > 0:
+            lo = max(0, q_offset - window + 1 - kv_offset) // bk * bk
+    tiles = max(1, -(-(hi - lo) // bk))
+    row_tiles = -(-rows // block_rows)
+    blocks = row_tiles * B * Hkv
+    splits, per = 1, tiles
+    if blocks < n_sm and tiles > 1:
+        want = min(tiles, -(-n_sm // blocks), MAX_SPLITS)
+        per = -(-tiles // want)
+        splits = -(-tiles // per)
+    return FlashPlan(path, block_rows, bk, row_tiles, lo, per * bk, splits)
+
+
+def split_ranges(plan: FlashPlan) -> List[Tuple[int, int]]:
+    """The key range ``[lo, hi)`` of each split of ``plan``."""
+    return [(plan.key_base + s * plan.keys_per_split,
+             plan.key_base + (s + 1) * plan.keys_per_split) for s in range(plan.splits)]
+
+
+_N_SM: Dict[int, int] = {}
+
+
+def _sm_count(idx: int) -> int:
+    """SMs of CUDA device ``idx``."""
+    n = _N_SM.get(idx)
+    if n is None:
+        n = _N_SM[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -53,6 +151,63 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
         q_offset=q_offset, kv_offset=kv_offset, kv_valid_len=kv_valid_len,
         kv_positions=kv_positions,
     )
+
+
+def flash_partial_plain(q, k, v, key_lo, key_hi, *, causal=True, window=0,
+                        softcap=0.0, scale: Optional[float] = None, q_offset=0,
+                        kv_offset=0, kv_valid_len=None, kv_positions=None):
+    """One split's partial, as the kernel forms it: attention of ``q``
+    over the keys ``[key_lo, key_hi)`` only.  Returns float32 ``(o, m,
+    l)``: ``o`` (B, Hq, Lq, D) the unnormalised sum of ``p v`` (p rounded
+    to v's dtype), ``m`` and ``l`` (B, Hq, Lq) the row maximum and the
+    sum of ``p``; a row with no valid key in the range has ``m = -1e30``,
+    ``l = 0`` and ``o = 0``."""
+    b, hq, lq, d = q.shape
+    _, hkv, lk, _ = k.shape
+    g = hq // hkv
+    sc = scale if scale is not None else d ** -0.5
+    lo, hi = max(0, int(key_lo)), max(0, min(lk, int(key_hi)))
+    hi = max(lo, hi)
+    dev = q.device
+    qpos = q_offset + torch.arange(lq, dtype=torch.int64, device=dev)
+    idx = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+    if kv_positions is not None:
+        kpos = kv_positions[lo:hi].to(device=dev, dtype=torch.int64)
+        ok = kpos >= 0
+    else:
+        kpos = kv_offset + idx
+        ok = idx < (lk if kv_valid_len is None else int(kv_valid_len))
+    mask = ok[None, :].expand(lq, -1)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window > 0:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    qg = q.reshape(b, hkv, g, lq, d).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k[:, :, lo:hi].float()) * sc
+    s = _apply_softcap(s, softcap)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1) if hi > lo else torch.full(s.shape[:-1], NEG_INF, device=dev)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v[:, :, lo:hi].float())
+    none = ~mask.any(dim=-1)                       # (Lq,)
+    m = torch.where(none, torch.full_like(m, NEG_INF), m)
+    l = torch.where(none, torch.zeros_like(l), l)
+    o = torch.where(none[:, None], torch.zeros_like(o), o)
+    return o.reshape(b, hq, lq, d), m.reshape(b, hq, lq), l.reshape(b, hq, lq)
+
+
+def flash_merge_plain(o, m, l, dtype):
+    """Merge split partials stacked on dim 0 (``o`` (S, ..., D), ``m``
+    and ``l`` (S, ...)) in split order; a row with no valid key in any
+    split is 0."""
+    M = m.amax(dim=0)
+    w = torch.exp(m - M)
+    L = (w * l).sum(dim=0)
+    O = (w[..., None] * o).sum(dim=0)
+    out = O / torch.clamp(L, min=1e-30)[..., None]
+    out = torch.where((M <= 0.5 * NEG_INF)[..., None], torch.zeros_like(out), out)
+    return out.to(dtype)
 
 
 def _flash_attention_cuda(q, k, v, *, causal, window, softcap, scale,
@@ -93,15 +248,27 @@ def _flash_attention_cuda(q, k, v, *, causal, window, softcap, scale,
         valid = Lk
     q = q.contiguous()
     sc = scale if scale is not None else D ** -0.5
+    aligned = (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0
+    dev = q.get_device()
+    plan = _plan(q.dtype, B, Hq, Hkv, Lq, Lk, D, _sm_count(dev), causal, int(window),
+                 int(q_offset), int(kv_offset), valid, kvp is not None, aligned)
     lib = _cuda.load("flash_attention", _SIG)
     out = torch.empty_like(q)
+    part = [None, None, None]
+    if plan.splits > 1:
+        n = plan.splits * B * Hkv * (Hq // Hkv) * Lq     # partial rows
+        buf = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+        ptr = buf.data_ptr()
+        part = [ptr, ptr + 4 * n * D, ptr + 4 * n * (D + 1)]
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if kvp is None else kvp.data_ptr(), out.data_ptr(),
+        None if kvp is None else kvp.data_ptr(), out.data_ptr(), *part,
         B, Hq, Hkv, Lq, Lk, D,
         int(q_offset), int(kv_offset), valid,
         int(bool(causal)), int(window), float(softcap), float(sc),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        _DTYPES[q.dtype], int(plan.path == "mma"), plan.block_rows, plan.block_keys,
+        plan.key_base, plan.keys_per_split, plan.splits,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")

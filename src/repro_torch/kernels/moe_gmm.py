@@ -8,7 +8,11 @@ Batched expert FFN over capacity buckets::
 with float32 accumulation and float32 ``h``, ``u`` and ``a``; the output
 takes ``x``'s dtype.  The wrapper makes ``x`` contiguous; the weights
 must be contiguous already (the model passes one layer of the stacked
-expert weights, which is).
+expert weights, which is).  In bf16 (D and F multiples of 8) the kernel
+runs on the tensor cores, weights streamed through a cp.async ring; in
+float32 on the CUDA cores (no TF32).  Its float32 sums run in another
+order than ``torch.bmm``'s, so in bf16 an ``a`` near a rounding boundary
+may round the other way than the plain version's.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import torch.nn.functional as F
 
 from .. import _cuda
 
-__all__ = ["moe_gmm", "moe_gmm_plain"]
+__all__ = ["moe_gmm", "moe_gmm_oracle64", "moe_gmm_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -39,6 +43,19 @@ def moe_gmm_plain(x, wg, wu, wd):
     u = torch.bmm(x.float(), wu.float())
     a = (F.silu(h) * u).to(wd.dtype)
     return torch.bmm(a.float(), wd.float()).to(x.dtype)
+
+
+def moe_gmm_oracle64(x, wg, wu, wd):
+    """The plain version with ``h``, ``u`` and ``out`` summed in float64,
+    each rounded once to float32: the sums that the kernel's and
+    ``moe_gmm_plain``'s float32 sums both approximate.  An oracle for the
+    checks (bf16 products are exact in float64, so only the sums of up to
+    D or F terms round), not a path of the model."""
+    d = torch.float64
+    h = torch.bmm(x.to(d), wg.to(d)).float()
+    u = torch.bmm(x.to(d), wu.to(d)).float()
+    a = (F.silu(h) * u).to(wd.dtype)
+    return torch.bmm(a.to(d), wd.to(d)).float().to(x.dtype)
 
 
 def _moe_gmm_cuda(x, wg, wu, wd):

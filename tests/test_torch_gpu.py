@@ -131,6 +131,12 @@ def _randn(shape, dtype, seed, scale=1.0):
     (2, 8, 2, 96, 96, 32, 0, 96, 32, 0.0),        # kernel-test sweep, window
     (1, 4, 1, 256, 256, 128, 0, 256, 0, 50.0),    # kernel-test sweep, softcap, D=128
     (2, 8, 4, 3, 100, 64, 40, 43, 16, 0.0),       # ragged decode with a window
+    # tile edges of the tensor-core / split-KV design
+    (2, 4, 4, 1, 100, 32, 70, 71, 0, 0.0),        # g = 1, D = 32, Lk off the tile
+    (3, 4, 2, 1, 77, 64, 60, 61, 16, 0.0),        # g = 2, window, split keys
+    (2, 16, 1, 1, 1000, 256, 900, 901, 0, 0.0),   # g = 16, D = 256, many splits
+    (1, 8, 2, 40, 300, 128, 200, 240, 64, 0.0),   # g = 4 prefill at an offset
+    (1, 16, 1, 300, 300, 256, 0, 300, 2048, 0.0),  # long MQA prefill, no split
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Lq, Lk, D, qo, kvl, w, cap):
     q = _randn((B, Hq, Lq, D), dtype, 1)
@@ -151,6 +157,9 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Lq, Lk, D
     (4, 64, 32, 64, 0.1),           # kernel-test sweep
     (8, 96, 16, 32, 0.1),
     (4, 10, 64, 32, None),          # reduced config, ragged capacity
+    (32, 1, 1024, 512, None),       # C in {1, 10, 320} at the serve width
+    (32, 10, 1024, 512, None),
+    (32, 320, 1024, 512, None),     # a 1024-token prefill's buckets
 ])
 def test_moe_gmm_kernel_matches_plain(cuda, dtype, E, C, D, F, scale):
     x = _randn((E, C, D), dtype, 4)
@@ -162,6 +171,27 @@ def test_moe_gmm_kernel_matches_plain(cuda, dtype, E, C, D, F, scale):
     assert MG.moe_gmm.launches == before + 1
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), MG.moe_gmm_plain(x, wg, wu, wd).float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("C", [8, 320])
+def test_moe_gmm_kernel_on_model_scale_weights(cuda, C):
+    """bf16 at granite-moe's width and init scale (dense_init: 1/sqrt(E),
+    outputs ~1e2), where a float32 sum in another order may round a =
+    bf16(silu(h) u) the other way: the kernel and the plain version are
+    held to TOL's band with its absolute term scaled by the output's rms
+    (chip_smoke.py ``TOL_MOE_MODEL``) against the float64 oracle and each
+    other."""
+    E, D, F = 32, 1024, 512
+    x = _randn((E, C, D), torch.bfloat16, 40)
+    wg, wu, wd = (_randn(s, torch.bfloat16, 41 + i, E ** -0.5)
+                  for i, s in enumerate([(E, D, F), (E, D, F), (E, F, D)]))
+    got = MG.moe_gmm(x, wg, wu, wd)
+    plain, o64 = MG.moe_gmm_plain(x, wg, wu, wd), MG.moe_gmm_oracle64(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    for a, b in ((got, o64), (plain, o64), (got, plain)):
+        a, b = a.float(), b.float()
+        band = 2e-2 * b.abs() + 2e-2 * b.pow(2).mean().sqrt()
+        assert torch.isfinite(a).all() and bool(((a - b).abs() <= band).all())
 
 
 #: tests/test_kernels.py's SSD tolerances
@@ -230,6 +260,10 @@ def test_rglru_kernel_matches_plain(cuda, dtype, B, L, W):
     (4, 16, 1, 128, 256, 24, 2048),     # recurrentgemma decode, ring part-filled
     (4, 16, 1, 128, 256, 300, 2048),    # wrapped
     (2, 8, 2, 64, 64, 150, 48),         # window inside the ring, D <= 128
+    (4, 16, 8, 256, 64, 5, 4096),       # split ranges of empty slots
+    (2, 8, 2, 192, 128, 20, 4096),
+    (2, 4, 4, 100, 32, 250, 4096),      # a ring off the tile, g = 1
+    (4, 16, 1, 2048, 256, 3000, 2048),  # recurrentgemma past its window
 ])
 def test_flash_attention_kernel_with_ring_positions(cuda, dtype, B, Hq, Hkv, W, D, pos, window):
     q = _randn((B, Hq, 1, D), dtype, 18)

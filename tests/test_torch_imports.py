@@ -87,6 +87,20 @@ def test_device_sampler_and_loop_refuse_missing_cuda(no_cuda):
         K.simulate(None, {}, {"work": None})
 
 
+def test_chain_tail_composition_needs_cpu_named_without_a_card():
+    """Decided in the body: without a card the default device raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from repro_torch.core import latency_model as LM_t
+    from repro_torch.core.hardware import simba_chip
+
+    model = LM_t.LatencyModel({}, simba_chip())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LM_t.chain_tail_composition(model, [], {}, 0.99, num_samples=8)
+    out = LM_t.chain_tail_composition(model, [], {}, 0.99, num_samples=8, device="cpu")
+    assert out["sum_of_quantiles_s"] == 0.0
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     from repro_torch import _cuda
 

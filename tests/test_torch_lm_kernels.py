@@ -20,7 +20,7 @@ from repro.models.common import chunked_attention as j_chunked  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import moe_gmm as MG  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.models.common import chunked_attention  # noqa: E402
+from repro_torch.models.common import NEG_INF, chunked_attention  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -99,15 +99,114 @@ def test_chunked_attention_with_offsets_matches_reference(case):
         assert torch.equal(got2, got)
 
 
-def test_ring_positions_name_their_roadmap_item():
-    """Ring positions (ROADMAP B4) are ported: a negative position masks
-    its key, so one valid key among empty slots takes all the weight."""
+def test_ring_positions_mask_empty_slots():
+    """A negative ring position masks its key, so one valid key among
+    empty slots takes all the weight."""
     q = torch.ones(1, 1, 1, 4)
     k = torch.ones(1, 1, 3, 4)
     v = torch.arange(12.0).reshape(1, 1, 3, 4)
     out = chunked_attention(q, k, v, q_offset=5,
                             kv_positions=torch.tensor([-3, 5, -1], dtype=torch.int64))
     assert torch.equal(out, v[:, :, 1:2])
+
+
+# ---------------------------------------------------------------------------
+# split-KV (flash-decoding) algebra of the CUDA kernel
+# ---------------------------------------------------------------------------
+def _ring_positions(pos, slots):
+    idx = np.arange(slots)
+    return pos - np.mod(pos - idx, slots)
+
+
+#: (B, Hq, Hkv, Lq, Lk, D, q_offset, kv_valid_len, window, softcap, ring pos):
+#: the reference's kernel-test sweep (q at offset 0, every key valid), the
+#: offset / ragged-cache cases, and rings (part-filled, wrapped, windowed)
+SPLIT_CASES = (
+    [(b, hq, hkv, l, l, d, 0, l, w, c, None)
+     for (b, hq, hkv, l, d) in [(1, 4, 4, 128, 64), (2, 8, 2, 96, 32), (1, 4, 1, 256, 128)]
+     for (w, c) in [(0, 0.0), (32, 0.0), (0, 50.0)]]
+    + [(2, 4, 2, 1, 32, 16, 9, 10, 0, 0.0, None),
+       (2, 4, 2, 5, 32, 16, 8, 13, 0, 0.0, None),
+       (1, 8, 2, 3, 40, 16, 20, 23, 6, 0.0, None),
+       (4, 16, 8, 1, 128, 64, 23, 24, 0, 0.0, None),
+       (1, 16, 8, 16, 128, 64, 0, 16, 0, 0.0, None),
+       (3, 4, 1, 1, 70, 128, 65, 66, 0, 30.0, None),
+       (4, 16, 1, 1, 128, 256, 40, None, 2048, 0.0, 40),
+       (4, 16, 1, 1, 128, 256, 300, None, 2048, 0.0, 300),
+       (2, 8, 2, 1, 64, 64, 150, None, 48, 0.0, 150)]
+)
+
+
+def _split_plans(dtype, case):
+    """The wrapper's own plan on a 132-SM card, and a plan of one tile
+    per split from key 0 (so that splits hold no valid key)."""
+    B, Hq, Hkv, Lq, Lk, D, qo, kvl, w, c, ring = case
+    plan = FA.flash_plan(dtype, B, Hq, Hkv, Lq, Lk, D, n_sm=132, causal=True, window=w,
+                         q_offset=qo, kv_valid_len=kvl, ring=ring is not None)
+    bk = plan.block_keys
+    fine = FA.FlashPlan(plan.path, plan.block_rows, bk, plan.row_tiles, 0, bk, -(-Lk // bk))
+    return [plan, fine]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_partials_merge_to_plain_and_reference(case, dtype):
+    B, Hq, Hkv, Lq, Lk, D, qo, kvl, w, c, ring = case
+    rng = np.random.default_rng(sum(case[:6]))
+    jq, tq = _pair(rng, (B, Hq, Lq, D), "float32")
+    jk, tk = _pair(rng, (B, Hkv, Lk, D), "float32")
+    jv, tv = _pair(rng, (B, Hkv, Lk, D), "float32")
+    kw = dict(causal=True, window=w, softcap=c, q_offset=qo, kv_valid_len=kvl)
+    jkw = dict(kw)
+    if ring is not None:
+        kpos = _ring_positions(ring, Lk)
+        kw = dict(causal=True, window=w, softcap=c, q_offset=qo,
+                  kv_positions=torch.from_numpy(kpos))
+        jkw = dict(causal=True, window=w, softcap=c, q_offset=qo,
+                   kv_positions=jnp.asarray(kpos, jnp.int32))
+    want = FA.flash_attention_plain(tq, tk, tv, **kw)
+    ref_out = _np(j_chunked(jq, jk, jv, **jkw))
+    td = DTYPES[dtype][1]
+    n_empty, bk = 0, 0
+    for plan in _split_plans(td, case):
+        bk = plan.block_keys
+        assert plan.path == ("mma" if dtype == "bfloat16" and D % 8 == 0 else "fma")
+        parts = [FA.flash_partial_plain(tq, tk, tv, lo, hi, **kw) for lo, hi in FA.split_ranges(plan)]
+        o, m, l = (torch.stack(x) for x in zip(*parts))
+        n_empty += int((m <= 0.5 * NEG_INF).all(dim=(1, 2, 3)).sum())
+        got = FA.flash_merge_plain(o, m, l, torch.float32)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(_np(got), ref_out, rtol=0, atol=1e-5)
+    # a tile wholly past the valid keys or of empty ring slots held none
+    if (ring is not None and ring + 1 <= Lk - bk) or (kvl is not None and -(-Lk // bk) > -(-kvl // bk)):
+        assert n_empty > 0
+
+
+@pytest.mark.parametrize("case, path, splits", [
+    # (dtype, B, Hq, Hkv, Lq, Lk, D, kw)
+    ((torch.bfloat16, 4, 16, 1, 1, 128, 256, dict(ring=True)), "mma", 4),
+    ((torch.bfloat16, 4, 16, 1, 1, 2048, 256, dict(ring=True)), "mma", 32),
+    ((torch.bfloat16, 4, 16, 8, 1, 128, 64, dict(q_offset=23, kv_valid_len=24)), "mma", 1),
+    ((torch.bfloat16, 1, 16, 8, 16, 128, 64, dict(kv_valid_len=16)), "mma", 1),
+    ((torch.bfloat16, 1, 16, 1, 2048, 2048, 256, dict(window=2048)), "mma", 1),
+    ((torch.float32, 4, 16, 1, 1, 128, 256, dict(ring=True)), "fma", 4),
+    ((torch.bfloat16, 2, 4, 2, 3, 64, 12, {}), "fma", 1),
+])
+def test_flash_plan_at_serve_and_timing_shapes(case, path, splits):
+    dtype, B, Hq, Hkv, Lq, Lk, D, kw = case
+    plan = FA.flash_plan(dtype, B, Hq, Hkv, Lq, Lk, D, n_sm=132, **kw)
+    assert (plan.path, plan.splits) == (path, splits)
+    assert plan.keys_per_split % plan.block_keys == 0 and plan.key_base % plan.block_keys == 0
+    lo, hi = FA.split_ranges(plan)[0][0], FA.split_ranges(plan)[-1][1]
+    assert lo <= 0 or not kw.get("ring")
+    causal_end = Lk if kw.get("ring") else kw.get("q_offset", 0) + Lq
+    assert hi >= min(Lk, kw.get("kv_valid_len", Lk), causal_end)  # every visible key
+    # a split only when the card would otherwise sit idle, and never more
+    # splits than tiles or blocks than fill it twice over
+    assert splits == 1 or plan.row_tiles * B * Hkv < 132
+    assert plan.blocks(B, Hkv) <= max(2 * 132, plan.row_tiles * B * Hkv)
+    # an unaligned pointer keeps bf16 off the tensor-core path
+    assert FA.flash_plan(dtype, B, Hq, Hkv, Lq, Lk, D, n_sm=132, aligned=False, **kw).path == "fma"
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +228,25 @@ def test_plain_moe_gmm_matches_pallas_and_oracle(e, c, d, f, bc, dtype):
     np.testing.assert_allclose(_np(got), _np(oracle), **_tol(dtype))
     np.testing.assert_allclose(_np(ref.moe_gmm_ref(tx, tg, tu, td)), _np(oracle),
                                **_tol(dtype))
+
+
+@pytest.mark.parametrize("e,c,d,f", [(4, 64, 32, 64), (8, 96, 16, 32), (4, 10, 64, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gmm_oracle64_matches_the_reference(e, c, d, f, dtype):
+    """The float64 oracle that the card's checks hold the kernel to agrees
+    with the JAX oracle, and in float32 with the plain version to float32
+    rounding."""
+    rng = np.random.default_rng(7 * e + c + d * f)
+    jx, tx = _pair(rng, (e, c, d), dtype)
+    jg, tg = _pair(rng, (e, d, f), dtype, 0.1)
+    ju, tu = _pair(rng, (e, d, f), dtype, 0.1)
+    jd, td = _pair(rng, (e, f, d), dtype, 0.1)
+    o64 = MG.moe_gmm_oracle64(tx, tg, tu, td)
+    assert o64.dtype == tx.dtype and o64.shape == tx.shape
+    np.testing.assert_allclose(_np(o64), _np(jref.moe_gmm_ref(jx, jg, ju, jd)), **_tol(dtype))
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(o64), _np(MG.moe_gmm_plain(tx, tg, tu, td)),
+                                   rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -114,7 +114,8 @@ def test_chain_tail_composition_within_mc_error():
     chain = [t for t in sorted(mb.profiles) if not mb.profiles[t].is_sensor][:4]
     dops = {t: 2 for t in chain}
     a = ctc_ref(ma, chain, dops, 0.99, num_samples=20000, seed=0)
-    b = LM_t.chain_tail_composition(mb, chain, dops, 0.99, num_samples=20000, seed=0)
+    b = LM_t.chain_tail_composition(mb, chain, dops, 0.99, num_samples=20000, seed=0,
+                                   device="cpu")
     assert a["sum_of_quantiles_s"] == b["sum_of_quantiles_s"]
     # different generators: the Monte-Carlo estimates agree within MC error
     assert abs(a["mc_quantile_s"] - b["mc_quantile_s"]) / a["mc_quantile_s"] < 0.05
