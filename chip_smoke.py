@@ -11,7 +11,10 @@ Phases, each printing one JSON line:
 2. ``build``   — builds every CUDA kernel of the port from ``src/``, all
    ``nvcc`` processes started together;
 3. ``kernel``  — each kernel against its plain PyTorch version on the card:
-   the ladder grant at the SoA path's widths (exact equality); flash
+   the ladder grant at the SoA path's widths (exact equality); the fused
+   EDF allocator (``alloc_ladder``: allocation, allocation + tp's bump,
+   Phase B's start validation) at R=1024 over P 1/4/21, C 1/6, W 8-1520
+   (exact equality, ``ALLOC_CASES``); flash
    attention and the MoE grouped matmul at the serve path's shapes, at the
    reference's kernel-test sweep shapes and through offset / ragged-cache
    decode cases, in bf16 and f32 (tolerances ``TOL``); the SSD intra-chunk
@@ -25,14 +28,18 @@ Phases, each printing one JSON line:
    host path (R=1024, ``rtol=1e-12``);
 5. ``main``    — ``run(commute, ads_tile, cockpit_replicas=4, seeds=range
    (1024), backend="soa")`` on the card, cold and warm, with every launch
-   counter set to 0 just before the warm run and read just after;
+   counter set to 0 just before each run and read just after (the fused
+   allocator 3 times per round, every other kernel never);
 6. ``loop``    — the round loop on the card against the same loop on the
    CPU (which the CPU tests hold against the JAX reference);
 7. ``equiv``   — SoA on the card against the port's own scalar engine
    (structural invariants exact, pooled KS <= 0.08, CI overlap);
-8. ``profile`` — device busy share of the round loop (torch.profiler over
-   the main path's first 100 rounds at R=1024) and the grant kernel's
-   device time;
+8. ``profile`` — the round loop over the main path's first 100 rounds at
+   R=1024, for ads_tile and tp_driven: wall ms, kernels per round, device
+   busy ms and idle share (torch.profiler), the fused allocator's device ms
+   and launches per round, the loop's peak device memory; every 10th
+   allocation replayed through kernel and plain version (equal), and 20
+   rounds under a dispatch mode that fails on any (R, W, W) output;
 9. ``serve``   — the LM serving path, for each arch of ``SERVE_ARCHS`` in
    turn (each freed before the next is built): ``ServingEngine`` at full
    width in bf16 (random weights from seed 0) with the reference
@@ -51,7 +58,11 @@ Phases, each printing one JSON line:
    OTHER/moe_gmm.cu`` another build of it is timed beside this one;
 11. ``flash_ab`` (only with ``--flash-baseline OTHER/src``) — flash
    attention's per-call and device time at the serve shapes from another
-   tree and from this one, each in a fresh process.
+   tree and from this one, each in a fresh process;
+12. ``soa_ab`` (only with ``--soa-baseline OTHER/src``) — the SoA main path
+   (ads_tile and tp_driven, cold and warm) and its 100-round profile from
+   another tree and from this one, each in a fresh process, in the order
+   baseline, this, this, baseline.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 before
 printing any result.  The last line is ``{"ok": true, "device": ...}``.
@@ -130,9 +141,9 @@ def cuda_ms(fn, iters=200, warmup=20):
     return a.elapsed_time(b) / iters
 
 
-def main_spec(**kw):
+def main_spec(policy="ads_tile", **kw):
     return ScenarioSpec(
-        scenario=get_scenario("commute"), policy="ads_tile", cockpit_replicas=4, **kw
+        scenario=get_scenario("commute"), policy=policy, cockpit_replicas=4, **kw
     )
 
 
@@ -162,6 +173,48 @@ def ladder_inputs(R, W, C, layout, seed, ladder=None):
         shape = (W, C) if layout == "shared" else (R, W, C)
         ladder = torch.sort(torch.randint(1, 33, shape, generator=g).float(), -1).values
     return limit.cuda(), ladder.contiguous().cuda()
+
+
+def alloc_inputs(R, W, C, P, seed, kind="", part_rows=None, cand_lanes=False,
+                 cap_rows=None):
+    """Integer queues for the fused EDF allocator, as the round loop builds
+    them (tests/test_torch_soa_alloc.py's): ladders sorted and padded by
+    repeating the last rung, wants on the ladder or 0, partition ids with a
+    few out of range, a random EDF permutation."""
+    rng = np.random.default_rng(seed)
+    shape = (R, W, C) if cand_lanes else (W, C)
+    cand = np.sort(rng.integers(1, 49, size=shape), axis=-1).astype(np.float32)
+    pad = rng.integers(1, C + 1, size=shape[:-1])
+    cand = np.where(np.arange(C) >= pad[..., None], np.take_along_axis(
+        cand, (pad - 1)[..., None], axis=-1), cand).astype(np.float32)
+    pick = rng.integers(0, C, size=(R, W))
+    want = np.take_along_axis(np.broadcast_to(cand, (R, W, C)), pick[..., None], -1)[..., 0]
+    want = np.where(rng.random((R, W)) < 0.15, 0.0, want).astype(np.float32)
+    entry = rng.random((R, W)) < 0.7
+    part = rng.integers(-1, P + 1, size=(part_rows or R, W)).astype(np.float32)
+    cap = rng.integers(0, 160, size=(cap_rows or R, P)).astype(np.float32)
+    if kind == "empty":
+        entry[:] = False
+    elif kind == "want_high":
+        want[:] = 1000.0
+    elif kind == "pool_zero":
+        cap[:] = 0.0
+    perm = rng.permutation(W).astype(np.int64)
+    return [torch.from_numpy(a).cuda() for a in (want, entry, part, cand, cap, perm)]
+
+
+#: (P, C, W, kind, part rows, per-lane ladders, cap rows): P in {1, 4, 21}
+#: (tp_driven, ads_tile, cyc at replicas=4), C in {1, 6}, W from 8 to the
+#: full-horizon window of the widest bundled cell (rate_churn, 1520); empty
+#: entry masks, wants above every cap, empty pools; the argument layouts
+ALLOC_CASES = (
+    [(P, C, W, "", None, False, None) for P in (1, 4, 21) for C in (1, 6)
+     for W in (8, 96, 160, 300, 1520)]
+    + [(P, 6, 160, k, None, False, None) for P in (1, 4)
+       for k in ("empty", "want_high", "pool_zero")]
+    + [(4, 6, 96, "", pr, cl, cr) for pr, cl, cr in
+       ((1, False, None), (None, False, 1), (None, True, None), (1, True, 1))]
+)
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +442,33 @@ def phase_kernel(errs):
     emit("kernel", name="ladder_grant", shapes="R=1024 W=96,144 C=6, (W,C) and (R,W,C)",
          exact=True, max_abs_err=max(errs["ladder_grant"]))
 
+    # the fused EDF allocator, exact: allocation, allocation + bump, and
+    # the start validation, each against its plain version on the card
+    for (P, C, W, kind, pr, cl, cr) in ALLOC_CASES:
+        # 128 lanes at W = 1520, where the plain version's (R, W, W) masks
+        # would take 28 GB
+        R = MAIN_R if W <= 300 else 128
+        want, entry, part, cand, cap, perm = alloc_inputs(
+            R, W, C, P, seed=P * 1000 + C * 10 + W, kind=kind, part_rows=pr,
+            cand_lanes=cl, cap_rows=cr)
+        tag = f"alloc_ladder P={P} C={C} W={W} {kind} {pr} {cl} {cr}"
+        for iters, bump in ((3, None), (8, 8)):
+            before = K.edf_alloc_ladder.launches
+            got = K.edf_alloc_ladder(want, entry, part, cand, cap, perm,
+                                     alloc_iters=iters, bump_passes=bump)
+            check(K.edf_alloc_ladder.launches == before + 1, f"{tag}: no launch")
+            plain = K._edf_alloc_ladder(want, entry, part, cand, cap, perm, iters, bump)
+            torch.cuda.synchronize()
+            errs["alloc_ladder"].append(float((got - plain).abs().max()))
+            check(torch.equal(got, plain), f"{tag} bump={bump}: differs from plain")
+        d = torch.where(entry, want, torch.zeros_like(want))
+        got = K.edf_start_keep(d, part, cap, perm)
+        torch.cuda.synchronize()
+        check(torch.equal(got, K._edf_start_keep(d, part, cap, perm)), f"{tag}: start_keep")
+    emit("kernel", name="alloc_ladder", cases=len(ALLOC_CASES),
+         shapes="R=1024 (128 at W=1520), P 1/4/21, C 1/6, W 8-1520; alloc, +bump, "
+                "start validation", exact=True, max_abs_err=max(errs["alloc_ladder"]))
+
     res = {}
     for i, (name, B, Hq, Hkv, Lq, Lk, D, qo, kvl, w, c) in enumerate(FLASH_CASES):
         for dtype in DTYPES:
@@ -515,14 +595,14 @@ def _means(reports):
 def _run_main(spec, seeds):
     metrics.enable()
     metrics.reset()
-    K.ladder_grant.launches = 0
+    _zero_counts()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         t = time.perf_counter()
         reports = run(spec, seeds=seeds, backend="soa", fallback=False, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    launches = K.ladder_grant.launches
+    launches = _counts()
     snap = metrics.snapshot()
     metrics.enable(False)
     retries = sum("SoA job window" in str(w.message) for w in caught)
@@ -538,11 +618,14 @@ def phase_main():
         problem = main_problem(spec, MAIN_R)
         cfg = problem.cfg
         rounds = int(snap["counters"].get("soa_rounds", 0))
-        per_round = 2 * (1 + cfg.alloc_iters)  # two _alloc_ladder calls (ads)
+        # one fused launch per allocation: Phase A, Phase B and Phase B's
+        # start validation; the standalone grant and every other kernel
+        # never run on this path
+        want = dict.fromkeys(COUNTED, 0)
+        want["alloc_ladder"] = 3 * rounds
         check(rounds == (1 + retries) * problem.const["t0"].shape[0],
               f"{tag}: {rounds} rounds for {retries} retries")
-        check(launches == rounds * per_round,
-              f"{tag}: {launches} grant launches, want {rounds} x {per_round}")
+        check(launches == want, f"{tag}: launches {launches}, want {want}")
         check(len(reports) == MAIN_R, f"{tag}: {len(reports)} reports")
         for r in reports:
             check(all(np.isfinite([r.violation_rate, r.realloc_frac,
@@ -623,42 +706,156 @@ def _per_launch_ms(by_name, tags):
     return (tot / n / 1e3) if n else None
 
 
-def phase_profile():
-    """Device busy share of the round loop: torch.profiler over the first
-    100 rounds of the main path's own problem (R=1024, same window)."""
-    from torch.profiler import ProfilerActivity, profile
+_SETTLED = set()  # cells whose window a full run of this process settled
 
-    spec = main_spec()
+
+def _profile_problem(policy, n_rounds):
+    """The first ``n_rounds`` rounds of the main path's problem for
+    ``policy`` (R=1024, the window the runner settled on) and its lanes."""
+    spec = main_spec(policy)
+    wf, model, _s, _p = runner._prepare_run(spec)
+    dur = spec.scenario.duration_s
+    key = (build_skeleton(wf, spec.scenario, dur).key, policy, spec.drop_policy, float(dur))
+    if key not in runner._SOA_LIFE_PAD_HINT and key not in _SETTLED:
+        # the runner settles the window (its overflow retry) on a full run
+        # of the cell; ``main`` has made ads_tile's, this makes the others'
+        _SETTLED.add(key)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            run(spec, seeds=list(range(MAIN_R)), backend="soa", fallback=False,
+                device="cuda")
     prob = main_problem(spec, MAIN_R)
-    n_rounds = 100
     const = dict(prob.const)
     for k in ("t0", "t1", "seg", "lo", "entry", "perm", "iperm"):
         const[k] = const[k][:n_rounds]
-    wf, model, _s, _p = runner._prepare_run(spec)
     bt = sample_trace_batch(build_skeleton(wf, spec.scenario, prob.duration), model,
-                            spec.scenario, list(range(MAIN_R)))
-    lanes = soa._lanes(prob, bt)
-    K.simulate(prob.cfg, const, lanes, device="cuda")  # warm-up
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    K.simulate(prob.cfg, const, lanes, device="cuda")
-    torch.cuda.synchronize()
-    plain_us = 1e6 * (time.perf_counter() - t)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        K.simulate(prob.cfg, const, lanes, device="cuda")
+                            spec.scenario, list(range(MAIN_R)), device="cuda")
+    return prob, const, soa._lanes(prob, bt)
+
+
+def _recording(every):
+    """Patch the fused kernel's launchers to keep a copy of the operands of
+    every ``every``-th call (the launch itself runs as always); returns the
+    list and an undo."""
+    seen, orig = [], (K._edf_alloc_ladder_cuda, K._edf_start_keep_cuda)
+    n = [0]
+
+    def keep(kind, fn):
+        def wrapped(*a):
+            if n[0] % every == 0:
+                seen.append((kind, [x.clone() if torch.is_tensor(x) else x for x in a]))
+            n[0] += 1
+            return fn(*a)
+        return wrapped
+
+    K._edf_alloc_ladder_cuda = keep("alloc", orig[0])
+    K._edf_start_keep_cuda = keep("keep", orig[1])
+
+    def undo():
+        K._edf_alloc_ladder_cuda, K._edf_start_keep_cuda = orig
+    return seen, undo
+
+
+def _replay_equal(seen):
+    """Each recorded call through the kernel and the plain version: equal."""
+    for kind, a in seen:
+        if kind == "alloc":
+            got, want = K._edf_alloc_ladder_cuda(*a), K._edf_alloc_ladder(*a)
+        else:
+            got, want = K._edf_start_keep_cuda(*a), K._edf_start_keep(*a)
         torch.cuda.synchronize()
-        prof_us = 1e6 * (time.perf_counter() - t)
-    n_kern, busy, by_name = _device_kernels(prof)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    emit("profile", rounds=n_rounds, R=MAIN_R, W=prob.cfg.W,
-         wall_ms=plain_us / 1e3, wall_ms_profiled=prof_us / 1e3,
-         device_kernels=n_kern,
-         kernels_per_round=n_kern / n_rounds if n_kern else None,
-         device_busy_ms=busy / 1e3 if n_kern else None,
-         device_idle_share=(1.0 - busy / plain_us) if n_kern else None,
-         ladder_grant_device_ms=_per_launch_ms(by_name, "ladder_grant_kernel"),
-         top_device_ms={k[:60]: [v[0], round(v[1] / 1e3, 3)] for k, v in top})
+        check(torch.equal(got, want), f"alloc_ladder on the main path's {kind} call")
+    return len(seen)
+
+
+def _largest_tensors(cfg, const, lanes, n_rounds=20):
+    """Run ``n_rounds`` rounds under a dispatch mode that sees every op's
+    output: (largest numel, shapes ending in (W, W))."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    W = cfg.W
+
+    class Watch(TorchDispatchMode):
+        biggest, square = 0, set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if torch.is_tensor(t):
+                    Watch.biggest = max(Watch.biggest, t.numel())
+                    if t.dim() >= 2 and tuple(t.shape[-2:]) == (W, W):
+                        Watch.square.add(tuple(t.shape))
+            return out
+
+    c = dict(const)
+    for k in ("t0", "t1", "seg", "lo", "entry", "perm", "iperm"):
+        c[k] = c[k][:n_rounds]
+    with Watch():
+        K.simulate(cfg, c, lanes, device="cuda")
+    torch.cuda.synchronize()
+    return Watch.biggest, sorted(Watch.square)
+
+
+def phase_profile():
+    """The round loop of the main path's problem (R=1024, same window) for
+    ads_tile and tp_driven, first 100 rounds: wall ms, device kernels per
+    round, busy ms and idle share (torch.profiler), the fused allocator's
+    device ms per launch, the loop's peak device memory; every 10th
+    allocation replayed through kernel and plain version (equal); and no
+    op output of (R, W, W) shape on the card path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n_rounds = 100
+    out = {}
+    for policy in ("ads_tile", "tp_driven"):
+        prob, const, lanes = _profile_problem(policy, n_rounds)
+        cfg = prob.cfg
+        seen, undo = _recording(10)
+        try:
+            K.simulate(cfg, const, lanes, device="cuda")  # warm-up, recorded
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        K.simulate(cfg, const, lanes, device="cuda")
+        torch.cuda.synchronize()
+        plain_us = 1e6 * (time.perf_counter() - t)
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+        before = K.edf_alloc_ladder.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            K.simulate(cfg, const, lanes, device="cuda")
+            torch.cuda.synchronize()
+            prof_us = 1e6 * (time.perf_counter() - t)
+        per_round = (K.edf_alloc_ladder.launches - before) / n_rounds
+        check(per_round == (3 if policy == "ads_tile" else 1),
+              f"profile {policy}: {per_round} fused launches per round")
+        n_kern, busy, by_name = _device_kernels(prof)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        n_equal = _replay_equal(seen)
+        biggest, square = _largest_tensors(cfg, const, lanes)
+        check(not square, f"profile {policy}: (R, W, W) tensors on the card path: {square}")
+        check(biggest < MAIN_R * cfg.W * cfg.W,
+              f"profile {policy}: a tensor of {biggest} elements on the card path")
+        out[policy] = dict(
+            W=cfg.W, P=cfg.P, C=cfg.C, alloc_iters=cfg.alloc_iters,
+            wall_ms=plain_us / 1e3, wall_ms_profiled=prof_us / 1e3,
+            rounds_per_s=n_rounds / (plain_us / 1e6),
+            device_kernels=n_kern,
+            kernels_per_round=n_kern / n_rounds if n_kern else None,
+            device_busy_ms=busy / 1e3 if n_kern else None,
+            device_idle_share=(1.0 - busy / plain_us) if n_kern else None,
+            alloc_ladder_per_round=per_round,
+            alloc_ladder_device_ms=_per_launch_ms(by_name, "alloc_ladder_kernel"),
+            loop_peak_mb=peak_mb,
+            rww_mask_mb=MAIN_R * cfg.W * cfg.W * 4 / 1e6,
+            largest_tensor_numel=biggest,
+            replayed_equal=n_equal,
+            top_device_ms={k[:60]: [v[0], round(v[1] / 1e3, 3)] for k, v in top},
+        )
+    emit("profile", rounds=n_rounds, R=MAIN_R, **out)
 
 
 def _pooled(reports):
@@ -720,7 +917,8 @@ def _leaves(tree):
 
 
 #: the launch-counted wrapper of each kernel
-COUNTED = {"ladder_grant": K.ladder_grant, "flash_attention": FA.flash_attention,
+COUNTED = {"ladder_grant": K.ladder_grant, "alloc_ladder": K.edf_alloc_ladder,
+           "flash_attention": FA.flash_attention,
            "moe_gmm": MG.moe_gmm, "ssd_intra_chunk": SSD.ssd_intra_chunk,
            "rglru_scan": RG.rglru_scan}
 
@@ -1008,17 +1206,101 @@ def _ladder_timing(problem, launches, errs):
     ms = cuda_ms(lambda: K.ladder_grant(limit, cand))
     plain_ms = cuda_ms(lambda: K._ladder_grant(limit, cand))
     ms2 = cuda_ms(lambda: K.ladder_grant(limit, cand))
+    host = _host_ms(lambda: K.ladder_grant(limit, cand))
     nbytes = 4 * R * W + 4 * W * C + 4 * R * W        # limit, ladder in; grant out
     nops = 3 * R * W * C                              # add+compare, select, max
     bound_ms, by = _bound(nbytes, nops, F32_OPS_PER_S)
     emit("timing", name="ladder_grant", R=R, W=W, C=C, ms_runs=[ms, ms2],
-         plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes, ops=nops)
+         host_ms_per_call=host, plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes,
+         ops=nops)
     return {"name": "ladder_grant", "route": "cuda",
             "source": "src/repro_torch/csrc/ladder_grant.cu",
             "replaces": "src/repro/core/sim/soa_kernels.py:178",
             "launches": int(launches), "max_abs_err": max(errs["ladder_grant"]),
             "ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": None}
+
+
+def _host_ms(fn, iters=2000):
+    """Host milliseconds per call: the enqueue rate of back-to-back calls
+    (the card keeps up with a launch this small, so this is the wrapper's
+    and the launch's host time)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t) / iters * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def _alloc_ops(a):
+    """Operations the data of one allocation call needs: per lane, the
+    fixed-point steps until one changes nothing (the kernel's early exit,
+    at most 1 + alloc_iters), each over W entries of one scan add, a
+    subtract, a min and a compare-select per rung (2C + 3)."""
+    want, entry, part, cand, cap, perm, iters, _bump = a
+    R, W = want.shape
+    C = cand.shape[-1]
+    want_s = torch.where(entry, want, 0.0).index_select(1, perm)
+    entry_s = entry.index_select(1, perm)
+    excl, _, capg = K._class_prefix(cap.shape[-1], part.expand(R, W).index_select(1, perm),
+                                    cap.expand(R, -1))
+    cand_s = cand.index_select(-2, perm)
+    cur, active = want_s, torch.ones(R, dtype=torch.bool, device=want.device)
+    steps = torch.zeros(R, device=want.device)
+    for _ in range(1 + iters):
+        new = torch.where(entry_s, K._ladder_grant(torch.minimum(want_s, capg - excl(cur)),
+                                                   cand_s), 0.0)
+        steps += active
+        active &= (new != cur).any(dim=1)
+        cur = new
+    return int(steps.sum()) * W * (2 * C + 3), int(steps.sum())
+
+
+def _alloc_timing(launches, errs):
+    """The fused allocator on a Phase B call of the main path (the last of
+    30 recorded rounds: per-lane partitions, the full pool)."""
+    prob, const, lanes = _profile_problem("ads_tile", 30)
+    seen, undo = _recording(1)
+    try:
+        K.simulate(prob.cfg, const, lanes, device="cuda")
+    finally:
+        undo()
+    a = [args for kind, args in seen if kind == "alloc" and args[2].shape[0] == MAIN_R][-1]
+    want, entry, part, cand, cap, perm, iters, bump = a
+    R, W, C, P = *want.shape, cand.shape[-1], cap.shape[-1]
+    got, plain = K._edf_alloc_ladder_cuda(*a), K._edf_alloc_ladder(*a)
+    torch.cuda.synchronize()
+    errs["alloc_ladder"].append(float((got - plain).abs().max()))
+    check(torch.equal(got, plain), "alloc_ladder at the main path's Phase B call")
+
+    def call():
+        return K.edf_alloc_ladder(want, entry, part, cand, cap, perm,
+                                  alloc_iters=iters, bump_passes=bump)
+
+    ms = cuda_ms(call)
+    plain_ms = cuda_ms(lambda: K._edf_alloc_ladder(*a), iters=50, warmup=5)
+    ms2 = cuda_ms(call)
+    dev_ms = device_ms(call)
+    host = _host_ms(call)
+    nbytes = (4 * R * W + R * W + 4 * part.shape[0] * W + 4 * cand.numel()
+              + 4 * cap.shape[0] * P + 8 * W + 4 * R * W)
+    nops, steps = _alloc_ops(a)
+    bound_ms, by = _bound(nbytes, nops, F32_OPS_PER_S)
+    emit("timing", name="alloc_ladder", call="ads Phase B", R=R, W=W, C=C, P=P,
+         alloc_iters=iters, ms_runs=[ms, ms2], device_ms=dev_ms, host_ms_per_call=host,
+         plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes, ops=nops,
+         lane_steps=steps)
+    return {"name": "alloc_ladder", "route": "cuda",
+            "source": "src/repro_torch/csrc/ladder_grant.cu",
+            "replaces": "src/repro/core/sim/soa_kernels.py:178",
+            "launches": int(launches), "max_abs_err": max(errs["alloc_ladder"]),
+            "ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None, "device_ms": dev_ms,
+            "host_ms_per_call": host}
 
 
 def _sdpa(q, k, v, mask):
@@ -1404,10 +1686,110 @@ def phase_flash_ab(baseline_src):
          runs=[r for _, r in runs])
 
 
-def phase_timing(problem, ladder_launches, serve, errs, moe_baseline=None):
+#: run in a fresh process with ``repro_torch`` importable from the tree
+#: under test: the SoA main path (commute, cockpit_replicas=4, 1024 seeds)
+#: for ads_tile and tp_driven, cold then warm, and a torch.profiler window
+#: over the first 100 rounds of the problem the runner settled on
+_SOA_AB_CODE = r"""
+import json, time, warnings, torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.core.sim import soa, soa_kernels as K
+from repro_torch.core.sim.batch import sample_trace_batch
+from repro_torch.core.sim.trace import build_skeleton
+from repro_torch.obs import metrics
+from repro_torch.scenarios import ScenarioSpec, get_scenario, run, runner
+R, N_ROUNDS, out = 1024, 100, {}
+for policy in ("ads_tile", "tp_driven"):
+    spec = ScenarioSpec(scenario=get_scenario("commute"), policy=policy, cockpit_replicas=4)
+    res = {}
+    for tag in ("cold", "warm"):
+        metrics.enable()
+        metrics.reset()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            t = time.perf_counter()
+            run(spec, seeds=list(range(R)), backend="soa", fallback=False, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        snap = metrics.snapshot()
+        metrics.enable(False)
+        rounds = snap["counters"].get("soa_rounds", 0)
+        res[tag] = dict(wall_s=wall, rounds=rounds,
+                        rounds_per_s=rounds / snap["phases"]["soa_loop"]["total_s"])
+    wf, model, sched, pf = runner._prepare_run(spec)
+    dur = spec.scenario.duration_s
+    skel = build_skeleton(wf, spec.scenario, dur)
+    pad = runner._SOA_LIFE_PAD_HINT.get((skel.key, policy, spec.drop_policy, float(dur)), 0.0)
+    prob = soa.build_problem(wf, model, sched, pf, runner._make_run_policy(spec, pf),
+                             spec.scenario, dur, replan=spec.replan, n_lanes=R,
+                             drop_policy=spec.drop_policy,
+                             options=soa.SoaOptions(life_pad_s=pad))
+    const = dict(prob.const)
+    for k in ("t0", "t1", "seg", "lo", "entry", "perm", "iperm"):
+        const[k] = const[k][:N_ROUNDS]
+    lanes = soa._lanes(prob, sample_trace_batch(skel, model, spec.scenario, list(range(R)),
+                                                device="cuda"))
+    K.simulate(prob.cfg, const, lanes, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    K.simulate(prob.cfg, const, lanes, device="cuda")
+    torch.cuda.synchronize()
+    wall_us = 1e6 * (time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() - base
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        K.simulate(prob.cfg, const, lanes, device="cuda")
+        torch.cuda.synchronize()
+    kern = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in kern:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    res["profile"] = dict(W=prob.cfg.W, rounds=N_ROUNDS, wall_ms=wall_us / 1e3,
+                          rounds_per_s=N_ROUNDS / (wall_us / 1e6),
+                          kernels_per_round=len(kern) / N_ROUNDS,
+                          device_busy_ms=busy / 1e3, device_idle_share=1.0 - busy / wall_us,
+                          loop_peak_mb=peak / 1e6)
+    out[policy] = res
+print(json.dumps(out))
+"""
+
+
+def phase_soa_ab(baseline_src):
+    """The SoA main path and its profile from another tree's ``src`` (such
+    as the parent commit's) and from this one, each in a fresh process, in
+    the order baseline, this, this, baseline: rounds/s, warm wall-clock,
+    kernels per round, device busy and idle, the loop's peak memory, for
+    ads_tile and tp_driven."""
+    runs = []
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    for tag, src in (("baseline", baseline_src), ("this", here), ("this", here),
+                     ("baseline", baseline_src)):
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+        res = subprocess.run([sys.executable, "-c", _SOA_AB_CODE],
+                             capture_output=True, text=True, timeout=900, env=env)
+        check(res.returncode == 0, f"SoA A/B ({tag}): {res.stderr[-1500:]}")
+        runs.append((tag, json.loads(res.stdout.strip().splitlines()[-1])))
+        emit("soa_ab_run", tag=tag, **runs[-1][1])
+    emit("soa_ab", baseline_src=baseline_src, order=[t for t, _ in runs],
+         warm_rounds_per_s={p: [r[p]["warm"]["rounds_per_s"] for _, r in runs]
+                            for p in ("ads_tile", "tp_driven")},
+         warm_wall_s={p: [r[p]["warm"]["wall_s"] for _, r in runs]
+                      for p in ("ads_tile", "tp_driven")},
+         kernels_per_round={p: [r[p]["profile"]["kernels_per_round"] for _, r in runs]
+                            for p in ("ads_tile", "tp_driven")},
+         loop_peak_mb={p: [r[p]["profile"]["loop_peak_mb"] for _, r in runs]
+                       for p in ("ads_tile", "tp_driven")})
+
+
+def phase_timing(problem, soa_launches, serve, errs, moe_baseline=None):
     kernels = []
     if problem is not None:
-        kernels.append(_ladder_timing(problem, ladder_launches, errs))
+        kernels.append(_ladder_timing(problem, soa_launches["ladder_grant"], errs))
+        kernels.append(_alloc_timing(soa_launches["alloc_ladder"], errs))
     if serve:
         by_arch = {arch: r["launches"] for arch, r in serve.items()}
         total = {k: sum(n[k] for n in by_arch.values()) for k in COUNTED}
@@ -1432,6 +1814,9 @@ def main():
     ap.add_argument("--flash-baseline", default=None, metavar="SRC",
                     help="another tree's src/ (e.g. the parent commit's) whose "
                          "flash_attention is timed beside this one's (phase flash_ab)")
+    ap.add_argument("--soa-baseline", default=None, metavar="SRC",
+                    help="another tree's src/ (e.g. the parent commit's) whose SoA main "
+                         "path and round-loop profile run beside this one's (phase soa_ab)")
     ap.add_argument("--moe-baseline", default=None, metavar="MOE_GMM_CU",
                     help="another source of csrc/moe_gmm.cu (e.g. the parent commit's) "
                          "to time beside this one in the timing phase")
@@ -1441,14 +1826,14 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(2)
     smi = phase_device()
-    errs = {k: [] for k in KERNELS}
+    errs = {k: [] for k in (*KERNELS, "alloc_ladder")}
     if "build" in only:
         phase_build()
     if "kernel" in only:
         phase_kernel(errs)
     if "sampler" in only:
         phase_sampler()
-    problem, launches = (None, 0)
+    problem, launches = (None, None)
     if "main" in only:
         problem, launches = phase_main()
     if "loop" in only:
@@ -1466,6 +1851,8 @@ def main():
         phase_timing(problem, launches, serve, errs, args.moe_baseline)
     if args.flash_baseline:
         phase_flash_ab(args.flash_baseline)
+    if args.soa_baseline:
+        phase_soa_ab(args.soa_baseline)
     emit("done", seconds=time.perf_counter() - T_START)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,9 +41,15 @@ it computes:
   count (``1 + alloc_iters`` / ``1 + bump_passes``): the refinement
   maps are idempotent once converged, so the result is the same and no
   round needs a host sync;
-* the ladder-grant select is :func:`ladder_grant`: a hand-written CUDA
-  kernel (``csrc/ladder_grant.cu``) for tensors on the card, its plain
-  PyTorch version :func:`_ladder_grant` for tensors on the CPU.
+* each round's EDF allocations are :func:`edf_alloc_ladder` and ads's
+  Phase B start validation :func:`edf_start_keep`: on the card one
+  launch each of a hand-written CUDA kernel (``csrc/ladder_grant.cu``)
+  that does the permutation, the per-partition prefixes, the ladder fixed
+  point and tp's bump per lane in shared memory; on the CPU their plain
+  PyTorch versions, the composition of :func:`_alloc_ladder`,
+  :func:`_bump_work_conserving` and the EDF gathers.  The standalone
+  grant :func:`ladder_grant` (the literal counterpart of the reference's
+  Pallas kernel) stays, off the loop's path.
 """
 from __future__ import annotations
 
@@ -81,6 +87,8 @@ __all__ = [
     "simulate",
     "ladder_grant",
     "ladder_grant_reference",
+    "edf_alloc_ladder",
+    "edf_start_keep",
 ]
 
 # mutable per-job state: NFIELDS separate (R, N) float32 planes, each
@@ -166,12 +174,12 @@ def ladder_grant_reference(limit: np.ndarray, cand: np.ndarray) -> np.ndarray:
     return np.max(np.where(ok, cand, 0.0), axis=-1)
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _LADDER_SIG = {
-    "ladder_grant": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p,
-    ]),
+    "ladder_grant": (_I, [_P, _P, _P, _I, _I, _I, _LL, _P]),
+    "alloc_ladder": (_I, [_P, _P, _P, _LL, _P, _LL, _P, _LL, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _P]),
+    "start_keep": (_I, [_P, _P, _LL, _P, _LL, _P, _P, _I, _I, _I, _P]),
 }
 
 
@@ -227,8 +235,9 @@ def ladder_grant(limit: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
 ladder_grant.launches = 0
 
 
-def _class_prefix(cfg, part_s, cap_p):
-    """Per-partition queue-prefix operators for one sorted queue.
+def _class_prefix(P, part_s, cap_p):
+    """Per-partition queue-prefix operators for one sorted queue of ``P``
+    partitions.
 
     Returns ``(excl, total, capg)``: ``excl(d)`` is each entry's
     exclusive prefix sum of ``d`` over earlier same-partition entries,
@@ -236,9 +245,10 @@ def _class_prefix(cfg, part_s, cap_p):
     and ``capg`` the entry's own partition budget.  With one partition
     these are a plain cumsum / broadcast sum; multi-partition uses a
     same-partition strict-lower mask as a batched matvec (full float32:
-    the caller disables TF32, the operands are small integer tile
-    counts and must sum exactly)."""
-    if cfg.P == 1:
+    the operands are small integer tile counts and must sum exactly).
+    The plain versions' form; the card's kernel takes the same prefixes
+    by a scan in shared memory."""
+    if P == 1:
         capg = cap_p[:, :1].expand(part_s.shape)
 
         def excl(d):
@@ -249,7 +259,7 @@ def _class_prefix(cfg, part_s, cap_p):
 
         return excl, total, capg
 
-    part_i = part_s.to(torch.int64).clamp(0, cfg.P - 1)
+    part_i = part_s.to(torch.int64).clamp(0, P - 1)
     same = (part_i[:, :, None] == part_i[:, None, :]).to(_F32)
     W = part_i.shape[1]
     tril = torch.tril(torch.ones((W, W), dtype=_F32, device=part_s.device), -1)
@@ -265,13 +275,13 @@ def _class_prefix(cfg, part_s, cap_p):
     return excl, total, capg
 
 
-def _alloc_ladder(cfg, want, entry, part_s, cand_s, cap_p):
+def _alloc_ladder(want, entry, part_s, cand_s, cap_p, alloc_iters):
     """Feasible EDF ladder allocation over one round's sorted queue.
 
     ``want``: (R, W) desired DoP per queue entry (EDF order);
     ``entry``: (R, W) bool participation mask; ``part_s``: (R, W)
-    partition id per entry; ``cand_s``: (W, C) candidate rows;
-    ``cap_p``: (R, P) tile budget per partition.
+    partition id per entry; ``cand_s``: (W, C) or (R, W, C) candidate
+    rows; ``cap_p``: (R, P) tile budget per partition.
 
     The scalar engine walks the queue sequentially, each entry seeing
     the tiles left by its predecessors.  Here a monotone fixed-point
@@ -288,22 +298,21 @@ def _alloc_ladder(cfg, want, entry, part_s, cand_s, cap_p):
     """
     zero = torch.zeros_like(want)
     want = torch.where(entry, want, zero)
-    excl, _, capg = _class_prefix(cfg, part_s, cap_p)
-    cand_s = cand_s.contiguous()
+    excl, _, capg = _class_prefix(cap_p.shape[1], part_s, cap_p)
     cur = want
-    for _ in range(1 + cfg.alloc_iters):
-        limit = torch.minimum(want, capg - excl(cur)).contiguous()
-        cur = torch.where(entry, ladder_grant(limit, cand_s), zero)
+    for _ in range(1 + alloc_iters):
+        limit = torch.minimum(want, capg - excl(cur))
+        cur = torch.where(entry, _ladder_grant(limit, cand_s), zero)
     return cur
 
 
-def _bump_work_conserving(cfg, grant, entry, part_s, cand_s, cap_p):
+def _bump_work_conserving(grant, entry, part_s, cand_s, cap_p, bump_passes):
     """tp_driven's saturation pass: spend leftover tiles by bumping
     queue entries (EDF order) to their next candidate rung.  Each pass
     assumes every earlier eligible entry takes its bump, so it never
     over-commits.  ``1 + bump_passes`` passes, by the same idempotence
     argument as :func:`_alloc_ladder`."""
-    excl, total, capg = _class_prefix(cfg, part_s, cap_p)
+    excl, total, capg = _class_prefix(cap_p.shape[1], part_s, cap_p)
 
     def one_pass(grant):
         above = cand_s > grant[..., None] + 0.5
@@ -325,9 +334,211 @@ def _bump_work_conserving(cfg, grant, entry, part_s, cand_s, cap_p):
         ok = take & (cume + delta <= leftg + 0.5)
         return torch.where(ok, grant + delta, grant)
 
-    for _ in range(1 + cfg.bump_passes):
+    for _ in range(1 + bump_passes):
         grant = one_pass(grant)
     return grant
+
+
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of a permutation (build_problem's ``iperm``)."""
+    return torch.argsort(perm)
+
+
+def _edf_alloc_ladder(want, entry, part, cand_rows, cap_p, perm, alloc_iters,
+                      bump_passes=None):
+    """Plain version of :func:`edf_alloc_ladder`: EDF-permute,
+    ladder-allocate, optionally bump, inverse-permute."""
+    R, W = want.shape
+    want_s = want.index_select(1, perm)
+    entry_s = entry.index_select(1, perm)
+    part_s = part.expand(R, W).index_select(1, perm)
+    cand_s = cand_rows.index_select(-2, perm)
+    cap_p = cap_p.expand(R, -1)
+    grant_s = _alloc_ladder(want_s, entry_s, part_s, cand_s, cap_p, alloc_iters)
+    if bump_passes is not None:
+        grant_s = _bump_work_conserving(
+            grant_s, entry_s, part_s, cand_s, cap_p, bump_passes
+        )
+    return grant_s.index_select(1, _inverse(perm))
+
+
+def _edf_start_keep(d, part, avail, perm):
+    """Plain version of :func:`edf_start_keep`."""
+    R, W = d.shape
+    d_s = d.index_select(1, perm)
+    excl, _, availg = _class_prefix(
+        avail.shape[1], part.expand(R, W).index_select(1, perm), avail.expand(R, -1)
+    )
+    keep_s = (d_s > 0) & (excl(d_s) + d_s <= availg + 0.5)
+    return keep_s.index_select(1, _inverse(perm))
+
+
+#: the most dynamic shared memory one block may use on Hopper
+_SMEM_MAX = 232448
+
+
+def _alloc_smem_bytes(W, C, P):
+    """Shared memory of one block of the fused kernel (in step with
+    ``alloc_smem_bytes`` in ``csrc/ladder_grant.cu``): scan buffer, five
+    float and three int planes of the queue, the ladder rows, warp totals,
+    segment starts, two flag planes."""
+    return 4 * (W + 1) + 32 * W + 4 * W * C + 128 + 4 * (P + 1) + 2 * W
+
+
+def _bad_rows(t, R, n, name):
+    return ValueError(
+        f"{name} must be ({R}, {n}) or (1, {n}) with contiguous rows, got "
+        f"shape {tuple(t.shape)} strides {t.stride()}"
+    )
+
+
+_FUSED = []  # the fused kernel's C entry points, bound at first launch
+_BOOL, _I64 = torch.bool, torch.int64
+
+
+def _fused():
+    if not _FUSED:
+        lib = _cuda.load("ladder_grant", _LADDER_SIG)
+        _FUSED.extend((lib.alloc_ladder, lib.start_keep))
+    return _FUSED
+
+
+# The two launchers check on attributes only, and read each attribute
+# once: the round loop runs under sync-debug "error" (nothing here may
+# read a value) and calls them once per allocation, so their host time is
+# the loop's pace.  part and cap_p / avail are (R, n) or (1, n) with
+# contiguous rows; a lane stride of 0 makes every lane read row 0.
+def _edf_alloc_ladder_cuda(want, entry, part, cand_rows, cap_p, perm,
+                           alloc_iters, bump_passes):
+    """Launch the fused EDF allocator of ``csrc/ladder_grant.cu``."""
+    shape = want.shape
+    if len(shape) != 2 or not want.is_contiguous():
+        raise ValueError(f"edf_alloc_ladder: want must be a contiguous (R, W), got {shape}")
+    R, W = shape
+    dev = want.get_device()
+    if not (entry.get_device() == part.get_device() == cand_rows.get_device()
+            == cap_p.get_device() == perm.get_device() == dev):
+        raise ValueError(f"edf_alloc_ladder: every operand must be on cuda:{dev}")
+    if not (want.dtype is part.dtype is cand_rows.dtype is cap_p.dtype is _F32):
+        raise TypeError("edf_alloc_ladder: want, part, cand_rows and cap_p must be float32")
+    if entry.dtype is not _BOOL or entry.shape != shape or not entry.is_contiguous():
+        raise ValueError("edf_alloc_ladder: entry must be a contiguous bool (R, W)")
+    if perm.dtype is not _I64 or perm.shape != (W,) or not perm.is_contiguous():
+        raise ValueError(f"edf_alloc_ladder: perm must be a contiguous int64 ({W},)")
+    cshape, cstride = cand_rows.shape, cand_rows.stride()
+    C = cshape[-1]
+    if len(cshape) == 2 and cshape[0] == W:
+        cand_ls = 0
+    elif len(cshape) == 3 and cshape[0] == R and cshape[1] == W:
+        cand_ls = cstride[0]
+    else:
+        raise ValueError(
+            f"edf_alloc_ladder: cand_rows must be ({W}, C) or ({R}, {W}, C), got "
+            f"{tuple(cshape)}"
+        )
+    if cstride[-2] != C or (C > 1 and cstride[-1] != 1):
+        raise ValueError("edf_alloc_ladder: cand_rows' rows must be contiguous")
+    (pr, pw), (part_ls, ps1) = part.shape, part.stride()
+    if pw != W or (pr != R and pr != 1) or ps1 != 1:
+        raise _bad_rows(part, R, W, "part")
+    (cr, P), (cap_ls, cs1) = cap_p.shape, cap_p.stride()
+    if (cr != R and cr != 1) or (cs1 != 1 and P > 1):
+        raise _bad_rows(cap_p, R, P, "cap_p")
+    if R * W * C * P == 0:
+        raise ValueError(f"edf_alloc_ladder: empty problem R={R} W={W} C={C} P={P}")
+    if _alloc_smem_bytes(W, C, P) > _SMEM_MAX:
+        raise ValueError(
+            f"edf_alloc_ladder: a queue of W={W} entries (C={C}, P={P}) does "
+            "not fit one block's shared memory"
+        )
+    out = torch.empty_like(want)
+    err = _fused()[0](
+        want.data_ptr(), entry.data_ptr(), part.data_ptr(), part_ls if pr != 1 else 0,
+        cand_rows.data_ptr(), cand_ls, cap_p.data_ptr(), cap_ls if cr != 1 else 0,
+        perm.data_ptr(), out.data_ptr(), R, W, C, P, alloc_iters,
+        -1 if bump_passes is None else bump_passes,
+        torch._C._cuda_getCurrentRawStream(dev),
+    )
+    if err != 0:
+        raise RuntimeError(f"alloc_ladder launch failed: CUDA error {err}")
+    edf_alloc_ladder.launches += 1
+    return out
+
+
+def _edf_start_keep_cuda(d, part, avail, perm):
+    """Launch the fused kernel's start-validation mode."""
+    shape = d.shape
+    if len(shape) != 2 or not d.is_contiguous():
+        raise ValueError(f"edf_start_keep: d must be a contiguous (R, W), got {shape}")
+    R, W = shape
+    dev = d.get_device()
+    if not (part.get_device() == avail.get_device() == perm.get_device() == dev):
+        raise ValueError(f"edf_start_keep: every operand must be on cuda:{dev}")
+    if not (d.dtype is part.dtype is avail.dtype is _F32):
+        raise TypeError("edf_start_keep: d, part and avail must be float32")
+    if perm.dtype is not _I64 or perm.shape != (W,) or not perm.is_contiguous():
+        raise ValueError(f"edf_start_keep: perm must be a contiguous int64 ({W},)")
+    (pr, pw), (part_ls, ps1) = part.shape, part.stride()
+    if pw != W or (pr != R and pr != 1) or ps1 != 1:
+        raise _bad_rows(part, R, W, "part")
+    (ar, P), (avail_ls, as1) = avail.shape, avail.stride()
+    if (ar != R and ar != 1) or (as1 != 1 and P > 1):
+        raise _bad_rows(avail, R, P, "avail")
+    if R * W * P == 0 or _alloc_smem_bytes(W, 0, P) > _SMEM_MAX:
+        raise ValueError(f"edf_start_keep: R={R}, W={W}, P={P} does not fit one block")
+    keep = torch.empty_like(d, dtype=_BOOL)
+    err = _fused()[1](
+        d.data_ptr(), part.data_ptr(), part_ls if pr != 1 else 0, avail.data_ptr(),
+        avail_ls if ar != 1 else 0, perm.data_ptr(), keep.data_ptr(), R, W, P,
+        torch._C._cuda_getCurrentRawStream(dev),
+    )
+    if err != 0:
+        raise RuntimeError(f"start_keep launch failed: CUDA error {err}")
+    edf_alloc_ladder.launches += 1
+    return keep
+
+
+def edf_alloc_ladder(want, entry, part, cand_rows, cap_p, perm, *, alloc_iters,
+                     bump_passes=None):
+    """One round's EDF allocation for R lanes: permute the queue into
+    EDF order by ``perm``, run the ladder fixed point (``1 +
+    alloc_iters`` steps), tp_driven's work-conserving bump when
+    ``bump_passes`` is not None (``1 + bump_passes`` passes), and return
+    the grants in window order.
+
+    ``want``: (R, W) float32; ``entry``: (R, W) bool; ``part``: (R, W)
+    or (1, W) partition ids; ``cand_rows``: (W, C) or (R, W, C) ladder
+    rows in window order; ``cap_p``: (R, P) or (1, P) budgets; ``perm``:
+    (W,) int64.  On a CUDA tensor one launch of the fused kernel
+    (raising if it cannot build or launch), on a CPU tensor the plain
+    version :func:`_edf_alloc_ladder`.  ``edf_alloc_ladder.launches``
+    counts the fused kernel's launches, those of :func:`edf_start_keep`
+    included."""
+    if want.is_cuda:
+        return _edf_alloc_ladder_cuda(want, entry, part, cand_rows, cap_p, perm,
+                                      alloc_iters, bump_passes)
+    if want.device.type != "cpu":
+        raise ValueError(f"edf_alloc_ladder: unsupported device {want.device}")
+    return _edf_alloc_ladder(want, entry, part, cand_rows, cap_p, perm,
+                             alloc_iters, bump_passes)
+
+
+edf_alloc_ladder.launches = 0
+
+
+def edf_start_keep(d, part, avail, perm):
+    """ads_tile's Phase B start validation: in EDF order, keep an entry
+    with ``d > 0`` whose same-partition prefix of ``d`` plus its own fits
+    ``avail`` (+ 0.5); returns the (R, W) bool mask in window order.
+    Shapes as :func:`edf_alloc_ladder`'s ``want``, ``part``, ``cap_p``
+    and ``perm``.  On a CUDA tensor one launch of the fused kernel
+    (counted by ``edf_alloc_ladder.launches``), on a CPU tensor the
+    plain version :func:`_edf_start_keep`."""
+    if d.is_cuda:
+        return _edf_start_keep_cuda(d, part, avail, perm)
+    if d.device.type != "cpu":
+        raise ValueError(f"edf_start_keep: unsupported device {d.device}")
+    return _edf_start_keep(d, part, avail, perm)
 
 
 # ---------------------------------------------------------------------------
@@ -471,7 +682,6 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
         hopsg = dc["hops"][sg]
         stagedg = dc["staged"][sg]
         permr = dc["perm"][r]
-        ipermr = dc["iperm"][r]
 
         # ---- seam hot-swap (rare; only at segment-entry rounds) ------
         if host["entry"][r] and host["swap"][sg]:
@@ -592,17 +802,13 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
             return torch.where(anym, picked, candw[None, :, -1])
 
         def edf_alloc(want_m, entry_m, part_m, cand_rows, pool, bump=False):
-            """EDF-permute, ladder-allocate, inverse-permute."""
-            want_s = want_m.index_select(1, permr)
-            entry_s = entry_m.index_select(1, permr)
-            part_s = part_m.expand(R, W).index_select(1, permr)
-            cand_s = cand_rows.index_select(0, permr)
-            grant_s = _alloc_ladder(cfg, want_s, entry_s, part_s, cand_s, pool)
-            if bump:
-                grant_s = _bump_work_conserving(
-                    cfg, grant_s, entry_s, part_s, cand_s, pool
-                )
-            return grant_s.index_select(1, ipermr)
+            """EDF-permute, ladder-allocate, inverse-permute: one launch
+            on the card."""
+            return edf_alloc_ladder(
+                want_m, entry_m, part_m, cand_rows, pool, permr,
+                alloc_iters=cfg.alloc_iters,
+                bump_passes=cfg.bump_passes if bump else None,
+            )
 
         def per_part(m, ids, val=None):
             """(R, P) per-partition sum (or any) keyed by an id array."""
@@ -714,12 +920,7 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
             grown_p = per_part(mB, pborn_i, torch.clamp(g - dop, min=0.0))
             availB = free2 + freed_p - grown_p
             dB = where0(still & own_trig_rdy, grantB)
-            dB_s = dB.index_select(1, permr)
-            exclB, _, availg = _class_prefix(
-                cfg, partA.index_select(1, permr), availB
-            )
-            keep_s = (dB_s > 0) & (exclB(dB_s) + dB_s <= availg + 0.5)
-            started2 = keep_s.index_select(1, ipermr)
+            started2 = edf_start_keep(dB, partA, availB, permr)
             started = started1 | started2
             grant = torch.where(
                 run, g,
@@ -804,24 +1005,16 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
 
 @contextlib.contextmanager
 def _cuda_loop_guard(dev: torch.device):
-    """On the card: full-float32 matmuls (the prefix operators compare
-    integer tile sums against +0.5 margins; TF32 keeps ~3 digits), and
-    any host sync inside the loop is an error."""
+    """On the card, any host sync inside the loop is an error."""
     if dev.type != "cuda":
         yield
         return
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    prec = torch.get_float32_matmul_precision()
     sync = torch.cuda.get_sync_debug_mode()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
     torch.cuda.set_sync_debug_mode("error")
     try:
         yield
     finally:
         torch.cuda.set_sync_debug_mode(sync)
-        torch.set_float32_matmul_precision(prec)
-        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def simulate(

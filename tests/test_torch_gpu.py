@@ -1,4 +1,5 @@
-"""The port on the card: the CUDA kernels (ladder grant, flash attention,
+"""The port on the card: the CUDA kernels (ladder grant, the fused EDF
+allocator, flash attention,
 MoE grouped matmul, SSD intra-chunk, RG-LRU scan) against their plain
 versions, the torch sampler,
 round loop, LM and serving engine on CUDA against their CPU runs.
@@ -68,6 +69,118 @@ def test_ladder_grant_kernel_refuses_bad_input(cuda):
         K.ladder_grant(torch.zeros(2, 3, device=cuda), torch.ones(3, 2))
 
 
+def _alloc_case(R, W, C, P, seed, kind="", part_rows=None, cand_lanes=False, cap_rows=None):
+    """tests/test_torch_soa_alloc.py's integer queues, at any R, on the card."""
+    rng = np.random.default_rng(seed)
+    shape = (R, W, C) if cand_lanes else (W, C)
+    cand = np.sort(rng.integers(1, 49, size=shape), axis=-1).astype(np.float32)
+    pad = rng.integers(1, C + 1, size=shape[:-1])
+    cand = np.where(np.arange(C) >= pad[..., None], np.take_along_axis(
+        cand, (pad - 1)[..., None], axis=-1), cand).astype(np.float32)
+    pick = rng.integers(0, C, size=(R, W))
+    want = np.take_along_axis(np.broadcast_to(cand, (R, W, C)), pick[..., None], -1)[..., 0]
+    want = np.where(rng.random((R, W)) < 0.15, 0.0, want).astype(np.float32)
+    entry = rng.random((R, W)) < 0.7
+    part = rng.integers(-1, P + 1, size=(part_rows or R, W)).astype(np.float32)
+    cap = rng.integers(0, 160, size=(cap_rows or R, P)).astype(np.float32)
+    if kind == "empty":
+        entry[:] = False
+    elif kind == "want_high":
+        want[:] = 1000.0
+    elif kind == "pool_zero":
+        cap[:] = 0.0
+    perm = rng.permutation(W).astype(np.int64)
+    return [torch.from_numpy(a).cuda() for a in (want, entry, part, cand, cap, perm)]
+
+
+ALLOC_CASES = (
+    [(P, C, W, "", None, False, None) for P in (1, 4, 21) for C in (1, 6)
+     for W in (8, 96, 160, 300, 1520)]
+    + [(P, 6, 160, k, None, False, None) for P in (1, 4)
+       for k in ("empty", "want_high", "pool_zero")]
+    + [(4, 6, 96, "", pr, cl, cr) for pr, cl, cr in
+       ((1, False, None), (None, False, 1), (None, True, None), (1, True, 1))]
+)
+
+
+@pytest.mark.parametrize("P, C, W, kind, part_rows, cand_lanes, cap_rows", ALLOC_CASES)
+def test_fused_alloc_kernel_equals_plain(cuda, P, C, W, kind, part_rows, cand_lanes, cap_rows):
+    # R = 1024 as the main path runs; 128 lanes at the full-horizon window
+    # (W = 1520), where the plain version's (R, W, W) masks would take 28 GB
+    want, entry, part, cand, cap, perm = _alloc_case(
+        1024 if W <= 300 else 128, W, C, P, seed=P * 1000 + C * 10 + W, kind=kind,
+        part_rows=part_rows, cand_lanes=cand_lanes, cap_rows=cap_rows)
+    for iters, bump in ((3, None), (8, 8)):
+        before = K.edf_alloc_ladder.launches
+        got = K.edf_alloc_ladder(want, entry, part, cand, cap, perm,
+                                 alloc_iters=iters, bump_passes=bump)
+        assert K.edf_alloc_ladder.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, K._edf_alloc_ladder(want, entry, part, cand, cap, perm,
+                                                    iters, bump))
+    d = torch.where(entry, want, torch.zeros_like(want))
+    got = K.edf_start_keep(d, part, cap, perm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K._edf_start_keep(d, part, cap, perm))
+
+
+def test_fused_alloc_kernel_equals_plain_on_main_path_problem(cuda, monkeypatch):
+    """Every allocation of the first 60 rounds of the main path's problem
+    (commute, cockpit_replicas=4, R=1024, the runner's window) for ads_tile
+    and tp_driven, recorded on the card, then replayed through the kernel
+    and the plain version."""
+    seen = []
+    alloc, keep = K._edf_alloc_ladder_cuda, K._edf_start_keep_cuda
+
+    def rec_alloc(*a):
+        seen.append(("alloc", [t.clone() for t in a[:6]], a[6:]))
+        return alloc(*a)
+
+    def rec_keep(*a):
+        seen.append(("keep", [t.clone() for t in a], ()))
+        return keep(*a)
+
+    monkeypatch.setattr(K, "_edf_alloc_ladder_cuda", rec_alloc)
+    monkeypatch.setattr(K, "_edf_start_keep_cuda", rec_keep)
+    for policy in ("ads_tile", "tp_driven"):
+        spec = ScenarioSpec(scenario=get_scenario("commute"), policy=policy,
+                            cockpit_replicas=4)
+        wf, model, sched, pf = runner._prepare_run(spec)
+        dur = spec.scenario.duration_s
+        prob = soa.build_problem(wf, model, sched, pf, runner._make_run_policy(spec, pf),
+                                 spec.scenario, dur, n_lanes=1024)
+        const = dict(prob.const)
+        for k in ("t0", "t1", "seg", "lo", "entry", "perm", "iperm"):
+            const[k] = const[k][:60]
+        bt = sample_trace_batch(build_skeleton(wf, spec.scenario, dur), model,
+                                spec.scenario, list(range(1024)), device="cuda")
+        K.simulate(prob.cfg, const, soa._lanes(prob, bt), device="cuda")
+    monkeypatch.undo()
+    assert {k for k, _, _ in seen} == {"alloc", "keep"}
+    for kind, args, extra in seen:
+        if kind == "alloc":
+            got, want = K._edf_alloc_ladder_cuda(*args, *extra), K._edf_alloc_ladder(*args, *extra)
+        else:
+            got, want = K._edf_start_keep_cuda(*args), K._edf_start_keep(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), kind
+
+
+def test_fused_alloc_kernel_refuses_bad_input(cuda):
+    want, entry, part, cand, cap, perm = _alloc_case(4, 16, 3, 2, seed=1)
+    kw = dict(alloc_iters=3, bump_passes=None)
+    with pytest.raises(ValueError, match="cuda"):
+        K.edf_alloc_ladder(want, entry, part, cand, cap.cpu(), perm, **kw)
+    with pytest.raises(TypeError):
+        K.edf_alloc_ladder(want.double(), entry, part, cand, cap, perm, **kw)
+    big = 6000
+    with pytest.raises(ValueError, match=f"W={big}"):
+        K.edf_alloc_ladder(
+            torch.zeros(2, big, device=cuda), torch.zeros(2, big, dtype=torch.bool, device=cuda),
+            torch.zeros(1, big, device=cuda), torch.ones(big, 6, device=cuda),
+            torch.ones(2, 4, device=cuda), torch.arange(big, device=cuda), **kw)
+
+
 def _cell(policy, R=4, duration=1.0):
     spec = ScenarioSpec(scenario=get_scenario("commute"), policy=policy)
     wf, model, sched, pf = runner._prepare_run(spec)
@@ -95,11 +208,15 @@ def test_cuda_loop_matches_cpu_loop(cuda, policy):
     bt = sample_trace_batch(skel, model, spec.scenario, [0, 1, 2, 3])
     lanes = soa._lanes(prob, bt)
     a = K.simulate(prob.cfg, prob.const, lanes, device="cpu")
-    before = K.ladder_grant.launches
+    before = K.edf_alloc_ladder.launches
+    grants = K.ladder_grant.launches
     b = K.simulate(prob.cfg, prob.const, lanes, device="cuda")
     n_rounds = prob.const["t0"].shape[0]
-    calls = 2 if policy == "ads_tile" else 1
-    assert K.ladder_grant.launches - before == n_rounds * calls * (1 + prob.cfg.alloc_iters)
+    # one fused launch per allocation: ads_tile's Phase A, Phase B and
+    # start validation, the others' one; the standalone grant never
+    calls = 3 if policy == "ads_tile" else 1
+    assert K.edf_alloc_ladder.launches - before == n_rounds * calls
+    assert K.ladder_grant.launches == grants
     same = (a["state"] == b["state"]) & (a["dop"] == b["dop"])
     assert same.mean() >= 1 - 1e-3
     ok = same & np.isfinite(a["fin"])
