@@ -19,10 +19,12 @@ Phases, each printing one JSON line:
    reference's kernel-test sweep shapes and through offset / ragged-cache
    decode cases, in bf16 and f32 (tolerances ``TOL``); the SSD intra-chunk
    kernel at the sweep shapes, mamba2-2.7b's full width (L = 1024 and a
-   ragged L = 600) and the serve prefill, and ``ops.ssd_chunked`` against
-   the model-level chunked scan with a nonzero initial state (``TOL_SSD``);
-   the RG-LRU scan at the sweep shapes, recurrentgemma's prefill
-   ``(1, 2048, 4096)`` and decode ``(4, 1, 4096)``; flash attention at
+   ragged L = 600), the serve prefill and the tensor-core design's tile
+   edges, and ``ops.ssd_chunked`` against the model-level chunked scan
+   with a nonzero initial state (``TOL_SSD``); the RG-LRU scan at the
+   sweep shapes, recurrentgemma's prefill ``(1, 2048, 4096)``, serve
+   prefill ``(1, 16, 4096)`` and decode ``(4, 1, 4096)``, and the chunked
+   design's edges (L = 2047, 2049; W = 100); flash attention at
    D = 256 on 128-slot rings (part-filled and wrapped ``kv_positions``);
 4. ``sampler`` — the torch trace sampler on the card against the NumPy
    host path (R=1024, ``rtol=1e-12``);
@@ -50,7 +52,10 @@ Phases, each printing one JSON line:
    (``serve_profile``); one request's prefill and 4 decode steps held
    against the port's CPU path on the same weights, widened to float32 on
    both sides (``serve_xcheck``; ``XCHECK_LAYERS`` cuts the depth where
-   the float32 copy would not fit the host);
+   the float32 copy would not fit the host); and for mamba2-2.7b and
+   recurrentgemma-9b one long request on the same weights (``serve_long``:
+   prompt 1024 / 2032, launches asserted, first-token latency, a profiled
+   prefill's device ms and the SSD / RG-LRU kernel's share of it);
 10. ``timing`` — kernel, plain-version, library and bound times at each
    path's shapes, then the ``kernels`` line; ``moe_gmm`` is also held on
    granite-moe's own expert weights against the float32 references and a
@@ -62,7 +67,11 @@ Phases, each printing one JSON line:
 12. ``soa_ab`` (only with ``--soa-baseline OTHER/src``) — the SoA main path
    (ads_tile and tp_driven, cold and warm) and its 100-round profile from
    another tree and from this one, each in a fresh process, in the order
-   baseline, this, this, baseline.
+   baseline, this, this, baseline;
+13. ``ssm_ab`` (only with ``--ssm-baseline OTHER/src``) — ``ssd_intra_chunk``
+   and ``rglru_scan`` per-call and device ms at their long and serve shapes
+   (``SSM_AB_CASES``) from another tree and from this one, each in a fresh
+   process, in the same order.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 before
 printing any result.  The last line is ``{"ok": true, "device": ...}``.
@@ -261,7 +270,7 @@ def phase_build():
          ptxas={k: [ln.split("ptxas info    : ")[-1] for ln in v.splitlines()
                     if any(w in ln for w in keep)]
                 for k, v in _cuda.BUILD_LOG.items()})
-    for name in ("flash_attention", "moe_gmm"):
+    for name in ("flash_attention", "moe_gmm", "ssd_intra_chunk"):
         counts = sass_counts(libs[name])
         emit("sass", kernel=name, functions=counts)
         mma = [f for f in counts if "mma_kernel" in f]
@@ -352,6 +361,15 @@ SSD_CASES = [
     ("full_L1024", 1, 1024, 80, 64, 128, 256),
     ("full_ragged_L600", 1, 600, 80, 64, 128, 256),
     ("serve_prefill", 1, 16, 80, 64, 128, 16),
+    # tile edges of the tensor-core design: C = 40 and 256 with ragged L,
+    # odd head counts, P = 8 and 128, N = 24 and 256, nb > 1; P = 4 (the
+    # CUDA cores in bf16 too)
+    ("edge_c40_h3_p8_n24", 2, 100, 3, 8, 24, 40),
+    ("edge_c40_h5_p128_n256", 1, 120, 5, 128, 256, 40),
+    ("edge_c256_h5_p128_n24_ragged", 1, 700, 5, 128, 24, 256),
+    ("edge_c256_h3_p8_n256_ragged", 1, 300, 3, 8, 256, 256),
+    ("edge_c256_h3_p64_n128_b2", 2, 512, 3, 64, 128, 256),
+    ("edge_c32_h3_p4_n16", 1, 64, 3, 4, 16, 32),
 ]
 
 
@@ -382,7 +400,13 @@ def ssd_chunks(x, dt, Bm, Cm, chunk):
 #: (name, B, L, W): tests/test_kernels.py's RG-LRU sweep, recurrentgemma-9b's
 #: LRU width at a 2048-token prefill and at the batch-4 decode step
 RGLRU_CASES = [("sweep_1x64x64", 1, 64, 64), ("sweep_2x48x128", 2, 48, 128),
-               ("prefill_1x2048x4096", 1, 2048, 4096), ("decode_4x1x4096", 4, 1, 4096)]
+               ("prefill_1x2048x4096", 1, 2048, 4096), ("decode_4x1x4096", 4, 1, 4096),
+               # the chunked design's edges: L = 1, 16 (the short-L form),
+               # 2047 and 2049 (chunks not dividing L), B = 4, W = 100 (one
+               # channel per thread)
+               ("serve_prefill_1x16x4096", 1, 16, 4096), ("ragged_1x2047x4096", 1, 2047, 4096),
+               ("ragged_4x2049x256", 4, 2049, 256), ("ragged_4x2049x100", 4, 2049, 100),
+               ("decode_4x1x100", 4, 1, 100), ("short_4x16x100", 4, 16, 100)]
 
 #: (name, B, Hq, Hkv, W slots, D, pos, window): recurrentgemma's decode on
 #: its 128-slot ring (16 query heads on one KV head of 256), part-filled
@@ -1083,11 +1107,11 @@ def _to(tree, device, dtype=None):
 
 
 #: kernel -> substrings of its device kernels' names: the first counts
-#: the calls (for the SSD wrapper, the chunk kernel that follows its C.B^T
-#: tiles), the rest add their time to it
+#: the calls, the rest add their time to it (the serve path is bf16: SSD's
+#: one tensor-core kernel; RG-LRU's short-L or chunked kernel)
 DEVICE_NAMES = {"flash_attention": ("flash_fwd_", "flash_merge_"), "moe_gmm": ("moe_gmm_",),
-                "ssd_intra_chunk": ("ssd_chunk_kernel",),
-                "rglru_scan": ("rglru_scan_kernel",)}
+                "ssd_intra_chunk": ("ssd_mma_kernel",),
+                "rglru_scan": ("rglru_",)}
 
 
 def _serve_profile(cfg, params, ecfg, n_steps=3):
@@ -1127,6 +1151,75 @@ def _serve_profile(cfg, params, ecfg, n_steps=3):
         kernel_device_ms={name: _per_launch_ms(by_name, tag) for name, tag in DEVICE_NAMES.items()},
         top_device_ms={k[:60]: [v[0], round(v[1] / 1e3, 4)] for k, v in top},
     )
+
+
+#: one long request per recurrent arch after the burst, on the same
+#: weights: (prompt length, max_len, the kernel whose long shape it runs).
+#: mamba2: 4 chunks of 256; recurrentgemma: a prompt that fills 2032 of
+#: its 2048 ring slots without wrapping them in the prefill (ROADMAP C9)
+SERVE_LONG = {"mamba2-2.7b": (1024, 1040, "ssd_intra_chunk"),
+              "recurrentgemma-9b": (2032, 2048, "rglru_scan")}
+
+
+def _serve_long(cfg, params, prompt_len, max_len, kernel):
+    """One long request through ``ServingEngine`` (batch 1, 16 new tokens):
+    first-token and request latency with the kernel launches asserted, then
+    the prefill of a second such request under torch.profiler: its device
+    ms and the share of it in ``kernel``'s device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ecfg = EngineConfig(max_batch=1, max_len=max_len)
+    rng = np.random.RandomState(2)
+
+    def request(rid, new=SERVE["max_new"]):
+        return Request(rid=rid, prompt=rng.randint(0, cfg.vocab_size, (prompt_len,))
+                       .astype(np.int32), max_new_tokens=new)
+
+    eng = ServingEngine(cfg, params, ecfg, device="cuda")
+    eng.submit(request(-1, 2))   # warm-up: the long shapes' first launches
+    eng.run_until_drained()
+    req = request(0)
+    pre, dec = eng.prefill_calls, eng.decode_calls
+    _zero_counts()
+    torch.cuda.synchronize()
+    req.arrival_s = time.time()
+    eng.submit(req)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = _expected_launches(cfg, eng.prefill_calls - pre, eng.decode_calls - dec)
+    check(launches == want, f"serve_long {cfg.name}: launches {launches}, want {want}")
+    check(launches[kernel] > 0, f"serve_long {cfg.name}: {kernel} never launched")
+    check(len(req.generated) == SERVE["max_new"]
+          and all(0 <= t < cfg.vocab_size for t in req.generated),
+          f"serve_long {cfg.name}: tokens {req.generated}")
+
+    eng.submit(request(1))
+    _zero_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng._admit()             # the prefill, and nothing else
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t)
+    prefill_launches = _counts()[kernel]
+    eng.run_until_drained()
+    n_kern, busy, by_name = _device_kernels(prof)
+    tag = DEVICE_NAMES[kernel][0]
+    kern_n = sum(v[0] for k, v in by_name.items() if tag in k)
+    kern_us = sum(v[1] for k, v in by_name.items() if tag in k)
+    total_us = sum(v[1] for v in by_name.values())
+    check(kern_n == prefill_launches > 0,
+          f"serve_long {cfg.name}: {kern_n} {tag} kernels for {prefill_launches} launches")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    emit("serve_long", arch=cfg.name, prompt_len=prompt_len, max_new=SERVE["max_new"],
+         max_len=max_len, first_token_s=req.first_token_s - req.arrival_s,
+         latency_s=req.finish_s - req.arrival_s, tokens=len(req.generated),
+         launches=launches, kernel=kernel, prefill_launches=prefill_launches,
+         prefill_wall_ms_profiled=prefill_ms, prefill_device_kernels=n_kern,
+         prefill_device_ms=total_us / 1e3, prefill_device_busy_ms=busy / 1e3,
+         kernel_device_ms=kern_us / 1e3, kernel_share=kern_us / total_us,
+         top_device_ms={k[:60]: [v[0], round(v[1] / 1e3, 4)] for k, v in top})
 
 
 def phase_serve(arch):
@@ -1181,6 +1274,8 @@ def phase_serve(arch):
          launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     prof = _serve_profile(cfg, params, ecfg)
     emit("serve_profile", **prof)
+    if cfg.name in SERVE_LONG:
+        _serve_long(cfg, params, *SERVE_LONG[cfg.name])
     _serve_xcheck(cfg, params, reqs[0].prompt)
     # the timing phase reuses granite-moe's expert weights (2.4 GB); the
     # rest of every model is freed before the next one is built
@@ -1578,6 +1673,8 @@ def _ssd_timing(launches, errs):
         ms = cuda_ms(lambda: SSD.ssd_intra_chunk(*args), iters=100, warmup=10)
         plain_ms = cuda_ms(lambda: SSD.ssd_intra_chunk_plain(*args), iters=10, warmup=3)
         ms2 = cuda_ms(lambda: SSD.ssd_intra_chunk(*args), iters=100, warmup=10)
+        dev = device_ms(lambda: SSD.ssd_intra_chunk(*args))
+        host = _host_ms(lambda: SSD.ssd_intra_chunk(*args), iters=200)
         _, nb, C, _, _ = xc.shape
         BC = B * nb
         tri = C * (C + 1) // 2                          # (t, s <= t) pairs per chunk
@@ -1585,8 +1682,10 @@ def _ssd_timing(launches, errs):
                   + 4 * BC * C * H * P + 4 * BC * H * P * N + 4 * BC * H)      # y, contrib, decay
         nops = BC * tri * N * 2 + BC * H * (tri * P * 2 + C * P * N * 2)       # C.B^T, y, contrib
         bound_ms, by = _bound(nbytes, nops, BF16_OPS_PER_S)
-        out[name] = dict(ms=min(ms, ms2), ms_runs=[ms, ms2], plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=nops)
+        out[name] = dict(ms=min(ms, ms2), ms_runs=[ms, ms2], device_ms=dev,
+                         host_ms_per_call=host, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=by, bytes=nbytes, ops=nops,
+                         path=SSD.ssd_plan(dt_, C, P, N).path)
         emit("timing", name="ssd_intra_chunk", case=name, dtype="bfloat16",
              x=list(xc.shape), N=N, library_ms=None, **out[name])
     d = out["full_L1024"]
@@ -1595,14 +1694,15 @@ def _ssd_timing(launches, errs):
             "replaces": "src/repro/kernels/ssd.py:65",
             "launches": int(launches), "max_abs_err": max(errs["ssd_intra_chunk"]),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-            "bound_by": d["bound_by"], "library_ms": None}
+            "bound_by": d["bound_by"], "library_ms": None, "device_ms": d["device_ms"],
+            "serve_prefill": out["serve_prefill"]}
 
 
 def _rglru_timing(launches, errs):
     """At recurrentgemma-9b's LRU width: a 2048-token prefill (the
     kernels-line row) and the batch-4 decode step."""
     out = {}
-    for name, B, L, W in RGLRU_CASES[2:]:
+    for name, B, L, W in RGLRU_CASES[2:5]:
         dt_ = torch.bfloat16
         args = rglru_inputs(B, L, W, dt_, seed=903)
         got = RG.rglru_scan(*args)
@@ -1612,11 +1712,14 @@ def _rglru_timing(launches, errs):
         plain_ms = cuda_ms(lambda: RG.rglru_scan_plain(*args), iters=3 if L > 1 else 100,
                            warmup=1 if L > 1 else 10)
         ms2 = cuda_ms(lambda: RG.rglru_scan(*args), iters=100, warmup=10)
+        dev = device_ms(lambda: RG.rglru_scan(*args))
+        host = _host_ms(lambda: RG.rglru_scan(*args), iters=200 if L > 1 else 2000)
         nbytes = 3 * 2 * B * L * W + 4 * W + 2 * B * W + 4 * B * L * W + 4 * B * W
         nops = 16 * B * L * W        # gates, exps, sqrt and the update, per element
         bound_ms, by = _bound(nbytes, nops, F32_OPS_PER_S)
-        out[name] = dict(ms=min(ms, ms2), ms_runs=[ms, ms2], plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=nops)
+        out[name] = dict(ms=min(ms, ms2), ms_runs=[ms, ms2], device_ms=dev,
+                         host_ms_per_call=host, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=by, bytes=nbytes, ops=nops)
         emit("timing", name="rglru_scan", case=name, dtype="bfloat16", x=[B, L, W],
              library_ms=None, **out[name])
     d = out["prefill_1x2048x4096"]
@@ -1624,7 +1727,7 @@ def _rglru_timing(launches, errs):
             "replaces": "src/repro/kernels/rglru.py:47",
             "launches": int(launches), "max_abs_err": max(errs["rglru_scan"]),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-            "bound_by": d["bound_by"], "library_ms": None,
+            "bound_by": d["bound_by"], "library_ms": None, "device_ms": d["device_ms"],
             "decode": out["decode_4x1x4096"]}
 
 
@@ -1684,6 +1787,79 @@ def phase_flash_ab(baseline_src):
         runs.append((tag, json.loads(res.stdout.strip().splitlines()[-1])))
     emit("flash_ab", baseline_src=baseline_src, order=[t for t, _ in runs],
          runs=[r for _, r in runs])
+
+
+#: run in a fresh process with ``repro_torch`` importable from the tree
+#: under test: ssd_intra_chunk's and rglru_scan's per-call and device ms at
+#: the timing shapes (bf16, the same seeded inputs in every tree)
+_SSM_AB_CODE = r"""
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import rglru as RG
+from repro_torch.kernels import ssd as SSD
+cases = json.loads(sys.argv[1])
+g = torch.Generator(device="cuda").manual_seed(904)
+def rand(*shape, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=g, device="cuda").to(dtype)
+out = {}
+for kind, name, shape in cases:
+    if kind == "ssd":
+        B, nb, C, H, P, N = shape
+        args = (rand(B, nb, C, H, P), torch.nn.functional.softplus(rand(B, nb, C, H, dtype=torch.float32)),
+                -torch.exp(0.3 * rand(H, dtype=torch.float32)), rand(B, nb, C, N), rand(B, nb, C, N))
+        call = lambda: SSD.ssd_intra_chunk(*args)
+    else:
+        B, L, W = shape
+        args = (rand(B, L, W), rand(B, L, W), rand(B, L, W), rand(W, dtype=torch.float32), rand(B, W))
+        call = lambda: RG.rglru_scan(*args)
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(200):
+        call()
+    b.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    out[name] = dict(ms=a.elapsed_time(b) / 200,
+                     device_ms=sum(e.time_range.elapsed_us() for e in kern) / 20 / 1e3,
+                     device_kernels_per_call=len(kern) / 20)
+print(json.dumps(out))
+"""
+
+#: the A/B shapes: SSD at mamba2-2.7b's L = 1024 (4 chunks of 256) and its
+#: one-chunk serve prefill; RG-LRU at recurrentgemma-9b's 2048-token
+#: prefill and its batch-4 decode step
+SSM_AB_CASES = [("ssd", "ssd_full_L1024", [1, 4, 256, 80, 64, 128]),
+                ("ssd", "ssd_serve_prefill", [1, 1, 16, 80, 64, 128]),
+                ("rglru", "rglru_prefill_1x2048x4096", [1, 2048, 4096]),
+                ("rglru", "rglru_decode_4x1x4096", [4, 1, 4096])]
+
+
+def phase_ssm_ab(baseline_src):
+    """ssd_intra_chunk and rglru_scan at their long and serve shapes from
+    another tree's ``src`` (such as the parent commit's) and from this one,
+    each in a fresh process, in the order baseline, this, this, baseline."""
+    runs = []
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    for tag, src in (("baseline", baseline_src), ("this", here), ("this", here),
+                     ("baseline", baseline_src)):
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+        res = subprocess.run([sys.executable, "-c", _SSM_AB_CODE, json.dumps(SSM_AB_CASES)],
+                             capture_output=True, text=True, timeout=600, env=env)
+        check(res.returncode == 0, f"SSM A/B ({tag}): {res.stderr[-1500:]}")
+        runs.append((tag, json.loads(res.stdout.strip().splitlines()[-1])))
+    emit("ssm_ab", baseline_src=baseline_src, order=[t for t, _ in runs],
+         ms={c[1]: [r[c[1]]["ms"] for _, r in runs] for c in SSM_AB_CASES},
+         device_ms={c[1]: [r[c[1]]["device_ms"] for _, r in runs] for c in SSM_AB_CASES},
+         device_kernels_per_call={c[1]: [r[c[1]]["device_kernels_per_call"] for _, r in runs]
+                                  for c in SSM_AB_CASES})
 
 
 #: run in a fresh process with ``repro_torch`` importable from the tree
@@ -1817,6 +1993,10 @@ def main():
     ap.add_argument("--soa-baseline", default=None, metavar="SRC",
                     help="another tree's src/ (e.g. the parent commit's) whose SoA main "
                          "path and round-loop profile run beside this one's (phase soa_ab)")
+    ap.add_argument("--ssm-baseline", default=None, metavar="SRC",
+                    help="another tree's src/ (e.g. the parent commit's) whose "
+                         "ssd_intra_chunk and rglru_scan are timed beside this one's "
+                         "(phase ssm_ab)")
     ap.add_argument("--moe-baseline", default=None, metavar="MOE_GMM_CU",
                     help="another source of csrc/moe_gmm.cu (e.g. the parent commit's) "
                          "to time beside this one in the timing phase")
@@ -1853,6 +2033,8 @@ def main():
         phase_flash_ab(args.flash_baseline)
     if args.soa_baseline:
         phase_soa_ab(args.soa_baseline)
+    if args.ssm_baseline:
+        phase_ssm_ab(args.ssm_baseline)
     emit("done", seconds=time.perf_counter() - T_START)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128,
     ``init_state`` (B, H, P, N) seeds the scan (zeros when None; the
     kernel's outputs do not depend on it).  Returns (y (B, L, H, P),
     final_state (B, H, P, N)), both in ``x``'s dtype.  Padded tail rows
-    carry ``dt = 0``, so they leave the state untouched.
+    carry ``dt = 0``, so they leave the state untouched.  One chunk from a
+    zero state skips the inter-chunk scan: its result is the kernel's.
     """
     b, l, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
@@ -47,6 +48,10 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128,
     Bc = Bm.reshape(b, nb, chunk, n)
     Cc = Cm.reshape(b, nb, chunk, n)
     y_intra, contrib, chunk_decay = ssd_intra_chunk(xc, dtc, A, Bc, Cc)
+    if nb == 1 and init_state is None:
+        # one chunk from a zero state (every serve prefill): y_inter is
+        # exactly 0 and the state exactly contrib (exp(acum) <= 1 is finite)
+        return y_intra.reshape(b, l, h, p).to(x.dtype), contrib[:, 0].to(x.dtype)
 
     # inter-chunk scan: carry the state, add y_inter per chunk
     ack = chunk_cumsum(dtc, A)                                       # (B,nb,C,H)

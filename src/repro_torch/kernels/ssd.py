@@ -18,21 +18,29 @@ reaches a few hundred, where one float32 ulp is ~3e-5: a float32 prefix
 sum in another order (the reference's ``jnp.cumsum``, torch's parallel
 scan) moves each decay weight by up to ~3e-5 relative and ``y_intra`` by
 ~1e-3 absolute, which would swamp the kernel's own differences.
-The wrapper makes every input contiguous (the model hands it slices);
-the kernel allocates nothing and runs on PyTorch's current stream.
+The wrapper's plan (:func:`ssd_plan`) sends bf16 to the tensor cores and
+float32 to the CUDA cores.  x, B and C are read in place as token rows
+with a row stride (the model hands it slices of one projection) where the
+path can; the kernel allocates nothing and runs on PyTorch's current
+stream.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _cuda
 
-__all__ = ["ssd_intra_chunk", "ssd_intra_chunk_plain", "chunk_cumsum"]
+__all__ = ["ssd_intra_chunk", "ssd_intra_chunk_plain", "chunk_cumsum", "ssd_plan", "SsdPlan"]
 
+_F32 = torch.float32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C, _MAX_P, _MAX_N = 256, 128, 256
+#: shared memory one block may take on an H100 (sm_90)
+SMEM_MAX = 227 * 1024
 
 _SIG = {
     "ssd_intra_chunk": (ctypes.c_int, [
@@ -40,7 +48,8 @@ _SIG = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
     ]),
 }
 
@@ -70,40 +79,129 @@ def ssd_intra_chunk_plain(x, dt, A, Bm, Cm):
     return y, contrib, torch.exp(ack[:, :, -1, :])
 
 
+class SsdPlan(NamedTuple):
+    """The kernel's block design for one call: ``path`` "mma" (bf16 on the
+    tensor cores, one launch of ``smem`` bytes of shared memory per block)
+    or "fma" (the CUDA cores, two launches and a (B, nb, C, C) scratch)."""
+    path: str
+    smem: int
+
+
+def _r16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def mma_smem_bytes(C: int, P: int, N: int) -> int:
+    """Shared memory of one tensor-core block (``mma_smem_bytes`` in the
+    source, whose launcher refuses any other count): B rows of ``_r16(N) + 8`` bf16, the head's x rows of
+    ``max(P, 16) + 8`` bf16, and acum, dt and coef in float32, over
+    ``_r16(C)`` rows."""
+    cp = _r16(C)
+    return 2 * cp * (_r16(N) + 8 + max(P, 16) + 8) + 4 * 3 * cp
+
+
+@functools.lru_cache(maxsize=1024)
+def ssd_plan(dtype, C: int, P: int, N: int) -> SsdPlan:
+    """bf16 with P >= 8 goes to the tensor cores when the chunk's B and x
+    fit one block's shared memory (``SMEM_MAX``: every shape the kernel
+    takes does, C = 256 with P = 128 and N = 256 in 203 KB); float32 and
+    P < 8 to the CUDA cores.  The launcher refuses a tensor-core plan whose
+    ``smem`` is not its own reckoning or does not fit."""
+    if dtype == torch.bfloat16 and P >= 8:
+        smem = mma_smem_bytes(C, P, N)
+        if smem <= SMEM_MAX:
+            return SsdPlan("mma", smem)
+    return SsdPlan("fma", 0)
+
+
+def _row_stride(t, inner):
+    """The row stride of ``t`` (B, nb, C, ...) seen as B * nb * C token rows
+    of ``inner`` contiguous elements, or None if it is not laid out so."""
+    sh, st = t.shape, t.stride()
+    want = 1
+    for d in range(t.dim() - 1, 2, -1):
+        if sh[d] != 1 and st[d] != want:
+            return None
+        want *= sh[d]
+    rs = st[2]
+    if rs < inner or (sh[1] != 1 and st[1] != rs * sh[2]) or \
+            (sh[0] != 1 and st[0] != rs * sh[2] * sh[1]):
+        return None
+    return rs
+
+
+def _fresh(t):
+    """A contiguous copy of ``t`` in new (aligned) storage."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+_FN = []
+
+
+def _fn():
+    """The kernel's entry point, built and loaded at first use."""
+    if not _FN:
+        _FN.append(_cuda.load("ssd_intra_chunk", _SIG).ssd_intra_chunk)
+    return _FN[0]
+
+
 def _ssd_intra_chunk_cuda(x, dt, A, Bm, Cm):
     """Launch ``csrc/ssd_intra_chunk.cu`` on the current stream."""
-    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+    dtype = x.dtype
+    code = _DTYPES.get(dtype)
+    if code is None or Bm.dtype is not dtype or Cm.dtype is not dtype:
         raise TypeError(f"ssd_intra_chunk takes float32 or bfloat16 x/Bm/Cm of one dtype, "
-                        f"got {x.dtype} / {Bm.dtype} / {Cm.dtype}")
-    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+                        f"got {dtype} / {Bm.dtype} / {Cm.dtype}")
+    if dt.dtype is not _F32 or A.dtype is not _F32:
         raise TypeError(f"ssd_intra_chunk takes float32 dt and A, got {dt.dtype} / {A.dtype}")
-    if any(t.device != x.device for t in (dt, A, Bm, Cm)):
-        raise ValueError("ssd_intra_chunk: inputs lie on different devices")
     if x.dim() != 5:
         raise ValueError(f"want x (B, nb, C, H, P), got {tuple(x.shape)}")
     b, nb, c, h, p = x.shape
     n = Bm.shape[-1]
-    if (tuple(dt.shape) != (b, nb, c, h) or tuple(A.shape) != (h,)
-            or tuple(Bm.shape) != (b, nb, c, n) or tuple(Cm.shape) != (b, nb, c, n)):
+    if (dt.shape != (b, nb, c, h) or A.shape != (h,)
+            or Bm.shape != (b, nb, c, n) or Cm.shape != (b, nb, c, n)):
         raise ValueError(f"ssd_intra_chunk shapes do not fit: x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm {tuple(Bm.shape)}, "
                          f"Cm {tuple(Cm.shape)}")
+    dev = x.get_device()
+    if not (dt.get_device() == A.get_device() == Bm.get_device() == Cm.get_device() == dev):
+        raise ValueError("ssd_intra_chunk: inputs lie on different devices")
     if (not 0 < c <= _MAX_C or not 0 < p <= _MAX_P or p & (p - 1)
             or not 0 < n <= _MAX_N or b * nb == 0 or h == 0):
         raise ValueError(f"ssd_intra_chunk takes 0 < C <= {_MAX_C}, P a power of two "
                          f"<= {_MAX_P}, 0 < N <= {_MAX_N}, got x {tuple(x.shape)}, N={n}")
-    x, dt, A, Bm, Cm = (t.contiguous() for t in (x, dt, A, Bm, Cm))
-    lib = _cuda.load("ssd_intra_chunk", _SIG)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    cb = torch.empty((b, nb, c, c), **f32)        # scratch: C.B^T per chunk
+    plan = ssd_plan(dtype, c, p, n)
+    mma = plan.path == "mma"
+    if not dt.is_contiguous():
+        dt = dt.contiguous()
+    if not A.is_contiguous():
+        A = A.contiguous()
+    # token rows read in place (the model hands slices of one projection);
+    # the tensor-core path needs x's rows 16-byte aligned, the CUDA cores
+    # contiguous operands
+    x_rs = _row_stride(x, h * p)
+    if mma:
+        x_ok = x_rs is not None and x_rs % 8 == 0 and x.data_ptr() % 16 == 0
+    else:
+        x_ok = x_rs == h * p
+    if not x_ok:
+        x, x_rs = _fresh(x), h * p
+    b_rs = _row_stride(Bm, n)
+    if b_rs is None or (not mma and b_rs != n):
+        Bm, b_rs = _fresh(Bm), n
+    c_rs = _row_stride(Cm, n)
+    if c_rs is None or (not mma and c_rs != n):
+        Cm, c_rs = _fresh(Cm), n
+    f32 = dict(dtype=_F32, device=x.device)
     y = torch.empty((b, nb, c, h, p), **f32)
     contrib = torch.empty((b, nb, h, p, n), **f32)
     decay = torch.empty((b, nb, h), **f32)
-    err = lib.ssd_intra_chunk(
+    cb = None if mma else torch.empty((b, nb, c, c), **f32)   # scratch: C.B^T per chunk
+    err = _fn()(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        cb.data_ptr(), y.data_ptr(), contrib.data_ptr(), decay.data_ptr(),
-        b * nb, c, h, p, n, _DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        None if mma else cb.data_ptr(), y.data_ptr(), contrib.data_ptr(), decay.data_ptr(),
+        b * nb, c, h, p, n, x_rs, b_rs, c_rs, code, 1 if mma else 0, plan.smem,
+        torch._C._cuda_getCurrentRawStream(dev),
     )
     if err != 0:
         raise RuntimeError(f"ssd_intra_chunk launch failed: CUDA error {err}")

@@ -323,6 +323,14 @@ TOL_SSD = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=
     (1, 1, 16, 80, 64, 128),        # the serve prefill
     (2, 2, 40, 3, 8, 24),           # ragged tiles, odd head count
     (1, 1, 64, 2, 128, 256),        # widest P and N
+    # the tensor-core design's edges: C = 40 and 256, H = 3 and 5, P = 8
+    # and 128, N = 24 and 256, nb > 1
+    (1, 3, 40, 5, 128, 256),
+    (2, 3, 40, 5, 8, 24),
+    (1, 3, 256, 5, 128, 24),
+    (1, 2, 256, 3, 8, 256),
+    (2, 2, 256, 3, 64, 128),
+    (1, 2, 32, 3, 4, 16),           # P = 4: the CUDA cores in bf16 too
 ])
 def test_ssd_intra_chunk_kernel_matches_plain(cuda, dtype, B, nb, C, H, P, N):
     x = _randn((B, nb, C, H, P), dtype, 8)
@@ -335,6 +343,49 @@ def test_ssd_intra_chunk_kernel_matches_plain(cuda, dtype, B, nb, C, H, P, N):
     torch.cuda.synchronize()
     for g, w in zip(got, SSD.ssd_intra_chunk_plain(x, dt, A, Bm, Cm)):
         torch.testing.assert_close(g, w, **TOL_SSD[dtype])
+
+
+def test_ssd_kernel_reads_model_slices_in_place(cuda):
+    """x, B and C sliced out of one projection (row stride > width) give
+    what their contiguous copies give, on the tensor cores."""
+    B, L, H, P, N = 1, 512, 6, 64, 128
+    conv = H * P + 2 * N
+    xbc = _randn((B, L, conv), torch.bfloat16, 20)
+    x = xbc[..., :H * P].reshape(B, 2, 256, H, P)
+    Bm = xbc[..., H * P:H * P + N].reshape(B, 2, 256, N)
+    Cm = xbc[..., H * P + N:].reshape(B, 2, 256, N)
+    dt = torch.nn.functional.softplus(_randn((B, 2, 256, H), torch.float32, 21))
+    A = -torch.exp(_randn((H,), torch.float32, 22, 0.3))
+    got = SSD.ssd_intra_chunk(x, dt, A, Bm, Cm)
+    want = SSD.ssd_intra_chunk(x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous())
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_ssd_launcher_refuses_a_plan_that_does_not_fit(cuda):
+    """The tensor-core launch checks the plan it is given: its shared
+    memory must be the source's own reckoning (the wrapper's), and the
+    operands bf16 with P >= 8."""
+    lib = SSD._cuda.load("ssd_intra_chunk", SSD._SIG)
+    C, H, P, N = 256, 2, 64, 256
+    x = torch.zeros((1, 1, C, H, P), dtype=torch.bfloat16, device="cuda")
+    dt, A = torch.zeros((1, 1, C, H), device="cuda"), torch.zeros((H,), device="cuda")
+    Bm = torch.zeros((1, 1, C, N), dtype=torch.bfloat16, device="cuda")
+    out = [torch.zeros(n, device="cuda") for n in (C * H * P, H * P * N, H)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(n, dtype, smem, p=P):
+        return lib.ssd_intra_chunk(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                                   Bm.data_ptr(), None, *(o.data_ptr() for o in out), 1, C, H,
+                                   p, n, H * p, n, n, dtype, 1, smem, stream)
+
+    assert call(128, 1, SSD.mma_smem_bytes(C, P, 128) - 16) != 0  # not its reckoning
+    assert call(128, 0, SSD.mma_smem_bytes(C, P, 128)) != 0       # float32
+    assert call(128, 1, SSD.mma_smem_bytes(C, 4, 128), p=4) != 0  # P < 8
+    assert call(128, 1, SSD.mma_smem_bytes(C, P, 128)) == 0
+    assert call(N, 1, SSD.mma_smem_bytes(C, P, N)) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("L", [16, 600, 1024])
@@ -359,6 +410,10 @@ def test_ssd_chunked_on_cuda_matches_cpu(cuda, L):
     (1, 2048, 4096),                # recurrentgemma-9b prefill
     (4, 1, 4096),                   # its decode step
     (3, 13, 100),                   # ragged width and length
+    # the chunked design's edges: L = 1 and 16 (the short-L form), 2047
+    # and 2049 (chunks not dividing L), B = 4, W = 100 (a channel a thread)
+    (1, 16, 4096), (4, 16, 100), (4, 1, 100),
+    (1, 2047, 4096), (4, 2049, 256), (4, 2049, 100),
 ])
 def test_rglru_kernel_matches_plain(cuda, dtype, B, L, W):
     x, r, i = (_randn((B, L, W), dtype, s) for s in (13, 14, 15))

@@ -89,6 +89,78 @@ def test_plain_rglru_matches_pallas_and_oracle(b, l, w, wb, dtype):
         np.testing.assert_allclose(_np(m), _np(o), **_tol("float32"))
 
 
+def _rglru_two_pass(x, r, i, lam, h0, lanes):
+    """``csrc/rglru_scan.cu``'s chunked design in torch: L cut into
+    ``lanes`` (a multiple of 32) chunks of T = ceil(L / lanes) steps; pass 1 runs each chunk
+    from h = 0 (its end value) and multiplies up its a; a scan over the
+    chunk summaries (composed as the kernel's warp scan composes them)
+    gives each chunk's start from h0; pass 3 replays each chunk from its
+    start.  Every chunk advances together, as the lanes do."""
+    b, l, w = x.shape
+    t = -(-l // lanes)
+    log_a = -RG._C * RG._softplus(lam.float()) * torch.sigmoid(r.float())
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    bt = beta * torch.sigmoid(i.float()) * x.float()
+    pad = lanes * t - l            # identity steps: a = 1, b = 0
+    a = torch.nn.functional.pad(a, (0, 0, 0, pad), value=1.0).reshape(b, lanes, t, w)
+    bt = torch.nn.functional.pad(bt, (0, 0, 0, pad)).reshape(b, lanes, t, w)
+    end, prod = torch.zeros((b, lanes, w)), torch.ones((b, lanes, w))
+    for k in range(t):
+        end = a[:, :, k] * end + bt[:, :, k]
+        prod = prod * a[:, :, k]
+    # a warp per channel: scan lane j composes chunks jK .. jK + K - 1, a
+    # shuffle scan composes the scan lanes, then each walks its chunks
+    k_ = lanes // 32
+    A, B = torch.ones((b, 32, w)), torch.zeros((b, 32, w))
+    for k in range(k_):
+        B = prod[:, k::k_] * B + end[:, k::k_]
+        A = A * prod[:, k::k_]
+    o = 1
+    while o < 32:
+        Ao = torch.cat([torch.ones((b, o, w)), A[:, :-o]], dim=1)
+        Bo = torch.cat([torch.zeros((b, o, w)), B[:, :-o]], dim=1)
+        A, B = A * Ao, A * Bo + B
+        o *= 2
+    Ae = torch.cat([torch.ones((b, 1, w)), A[:, :-1]], dim=1)
+    Be = torch.cat([torch.zeros((b, 1, w)), B[:, :-1]], dim=1)
+    carry = Ae * h0.float()[:, None] + Be
+    starts = []
+    for k in range(k_):
+        starts.append(carry)
+        carry = prod[:, k::k_] * carry + end[:, k::k_]
+    h = torch.stack(starts, dim=2).reshape(b, lanes, w)
+    out = torch.empty((b, lanes, t, w))
+    for k in range(t):
+        h = a[:, :, k] * h + bt[:, :, k]
+        out[:, :, k] = h
+    out = out.reshape(b, lanes * t, w)[:, :l]
+    return out, out[:, -1]
+
+
+@pytest.mark.parametrize("b,l,w,lanes", [
+    (1, 2048, 256, 128),    # recurrentgemma's prefill length: T = 16
+    (1, 13, 64, 128),       # L not a multiple of T: lanes left empty
+    (1, 2047, 64, 128),
+    (2, 2049, 64, 128),
+    (4, 2049, 100, 32),     # the one-channel-per-thread form: T = 65
+])
+def test_rglru_two_pass_scan_matches_pallas_and_oracle(b, l, w, lanes):
+    """The kernel's reassociation (chunk carries, then a replay) holds the
+    Pallas kernel and the sequential oracle to the float32 tolerance."""
+    rng = np.random.default_rng(l + w)
+    (jx, tx), (jr, tr), (ji, ti) = (_pair(rng.standard_normal((b, l, w))) for _ in range(3))
+    jlam, tlam = _pair(rng.standard_normal(w))
+    jh0, th0 = _pair(rng.standard_normal((b, w)))
+    got = _rglru_two_pass(tx, tr, ti, tlam, th0, lanes)
+    pallas = jops.rglru_scan(jx, jr, ji, jlam, jh0, width_block=w if w % 128 else 128,
+                             interpret=True)
+    oracle = jref.rglru_scan_ref(jx, jr, ji, jlam, jh0)
+    for g, p_, o in zip(got, pallas, oracle):
+        np.testing.assert_allclose(_np(g), _np(p_), **_tol("float32"))
+        np.testing.assert_allclose(_np(g), _np(o), **_tol("float32"))
+
+
 def test_rglru_dispatch_takes_the_plain_version_on_cpu_only():
     x = torch.randn(2, 5, 8)
     args = (x, torch.randn(2, 5, 8), torch.randn(2, 5, 8), torch.randn(8), torch.randn(2, 8))

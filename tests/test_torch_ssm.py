@@ -102,6 +102,116 @@ def test_plain_ssd_intra_chunk_matches_pallas_and_oracle(b, nb, c, h, p, n, dtyp
         np.testing.assert_allclose(_np(m), _np(pl_), **_tol(dtype))
 
 
+def _ssd_split_products(x, dt, A, Bm, Cm, split=True):
+    """``ssd_mma_kernel``'s arithmetic in torch: C.B^T from the bf16 C and
+    B (exact products, float32 sums), the float32 weights W split into
+    bf16 hi + lo against the exact bf16 x, and coef * x split the same way
+    against the exact bf16 B (``split=False``: W and coef * x rounded to
+    bf16 once)."""
+    c = x.shape[2]
+    xf, Bf, Cf = x.float(), Bm.float(), Cm.float()
+    ack = SSD.chunk_cumsum(dt, A)
+    seg = ack[:, :, :, None, :] - ack[:, :, None, :, :]
+    causal = torch.tril(torch.ones((c, c), dtype=torch.bool))
+    seg = seg.masked_fill(~causal[None, None, :, :, None], -float("inf"))
+    w = torch.einsum("bktn,bksn->bkts", Cf, Bf)[..., None] * torch.exp(seg) * dt[:, :, None]
+    cx = (dt * torch.exp(ack[:, :, -1:, :] - ack))[..., None] * xf
+
+    def parts(v):
+        hi = v.bfloat16().float()
+        return (hi, (v - hi).bfloat16().float()) if split else (hi,)
+
+    y = sum(torch.einsum("bktsh,bkshp->bkthp", v, xf) for v in parts(w))
+    contrib = sum(torch.einsum("bkshp,bksn->bkhpn", v, Bf) for v in parts(cx))
+    return y, contrib, torch.exp(ack[:, :, -1, :])
+
+
+def _ssd_oracle64(x, dt, A, Bm, Cm):
+    """The intra-chunk part in float64 throughout (acum unrounded)."""
+    c = x.shape[2]
+    x, dt, A, Bm, Cm = (t.double() for t in (x, dt, A, Bm, Cm))
+    ack = torch.cumsum(dt * A, dim=2)
+    seg = ack[:, :, :, None, :] - ack[:, :, None, :, :]
+    causal = torch.tril(torch.ones((c, c), dtype=torch.bool))
+    seg = seg.masked_fill(~causal[None, None, :, :, None], -float("inf"))
+    w = torch.einsum("bktn,bksn->bkts", Cm, Bm)[..., None] * torch.exp(seg) * dt[:, :, None]
+    coef = dt * torch.exp(ack[:, :, -1:, :] - ack)
+    return (torch.einsum("bktsh,bkshp->bkthp", w, x),
+            torch.einsum("bksh,bksn,bkshp->bkhpn", coef, Bm, x), torch.exp(ack[:, :, -1, :]))
+
+
+@pytest.mark.parametrize("b,nb,c,h,p,n", [
+    (1, 2, 256, 4, 64, 128),    # mamba2's chunk and head widths, 4 heads
+    (2, 3, 40, 3, 8, 24),       # ragged tiles: C, N not multiples of 16, P = 8
+])
+def test_ssd_split_products_match_pallas_and_oracle64(b, nb, c, h, p, n):
+    """The tensor-core design's bf16 hi + lo products hold the Pallas kernel
+    and a float64 oracle to the bf16 tolerance; one bf16 rounding of the
+    float32 weights would not (at chunk 256: ~4x the tolerance on y)."""
+    (jx, tx), (jdt, tdt), (jA, tA), (jB, tB), (jC, tC) = _ssd_inputs(
+        c + n, b, nb * c, h, p, n, "bfloat16", chunked=(nb, c))
+    got = _ssd_split_products(tx, tdt, tA, tB, tC)
+    pallas = j_ssd_intra_chunk(jx, jdt, jA, jB, jC, head_block=h, interpret=True)
+    oracle = _ssd_oracle64(tx, tdt, tA, tB, tC)
+    for g, pl_, o in zip(got, pallas, oracle):
+        np.testing.assert_allclose(_np(g), _np(pl_), **_tol("bfloat16"))
+        np.testing.assert_allclose(g.double().numpy(), o.numpy(), **_tol("bfloat16"))
+    if c == 256:
+        once = _ssd_split_products(tx, tdt, tA, tB, tC, split=False)[0]
+        assert not np.allclose(once.double().numpy(), oracle[0].numpy(), **_tol("bfloat16"))
+
+
+@pytest.mark.parametrize("dtype,C,P,N,path", [
+    ("bfloat16", 256, 64, 128, "mma"),    # mamba2-2.7b at L = 1024
+    ("bfloat16", 16, 64, 128, "mma"),     # its serve prefill
+    ("bfloat16", 40, 8, 24, "mma"),
+    ("bfloat16", 256, 128, 256, "mma"),   # the widest chunk: 203 KB
+    ("bfloat16", 256, 64, 256, "mma"),
+    ("bfloat16", 64, 4, 16, "fma"),       # P < 8
+    ("float32", 256, 64, 128, "fma"),     # the float32 cross-check
+])
+def test_ssd_plan(dtype, C, P, N, path):
+    plan = SSD.ssd_plan(DTYPES[dtype][1], C, P, N)
+    assert plan.path == path
+    if path == "mma":
+        assert plan.smem == SSD.mma_smem_bytes(C, P, N) <= SSD.SMEM_MAX
+    else:
+        assert plan.smem == 0
+    assert SSD.mma_smem_bytes(256, 64, 128) == 109568   # two blocks an SM
+    assert SSD.mma_smem_bytes(256, 128, 256) == 207872 <= SSD.SMEM_MAX
+
+
+def test_ssd_row_stride_reads_model_slices_in_place():
+    """x / B / C as the model slices them out of one projection keep their
+    row stride; layouts that are not token rows give None (copied)."""
+    b, l, h, p, n = 2, 32, 4, 8, 16
+    conv = h * p + 2 * n
+    xbc = torch.zeros((b, l, conv))
+    xs = xbc[..., :h * p].reshape(b, l, h, p).reshape(b, 2, 16, h, p)
+    Bm = xbc[..., h * p:h * p + n].reshape(b, l, 1, n).reshape(b, 2, 16, n)
+    assert SSD._row_stride(xs, h * p) == conv
+    assert SSD._row_stride(Bm, n) == conv
+    assert SSD._row_stride(torch.zeros((b, 2, 16, h, p)), h * p) == h * p
+    assert SSD._row_stride(torch.zeros((b, 2, 16, p, h)).transpose(3, 4), h * p) is None
+    assert SSD._row_stride(torch.zeros((b, 16, 2, n)).transpose(1, 2), n) is None
+
+
+@pytest.mark.parametrize("l,h,p,n", [(16, 8, 64, 128), (40, 3, 16, 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunked_one_chunk_skips_the_scan(l, h, p, n, dtype):
+    """One chunk from no state (every serve prefill): bit-equal to the
+    general path from a zero state, and allclose to the reference op."""
+    (jx, tx), (jdt, tdt), (jA, tA), (jB, tB), (jC, tC) = _ssd_inputs(l + n, 1, l, h, p, n, dtype)
+    y, fin = ops.ssd_chunked(tx, tdt, tA, tB, tC, chunk=256)
+    zero = torch.zeros((1, h, p, n))
+    y0, fin0 = ops.ssd_chunked(tx, tdt, tA, tB, tC, chunk=256, init_state=zero)
+    assert y.dtype == y0.dtype == fin.dtype == fin0.dtype == tx.dtype
+    assert torch.equal(y, y0) and torch.equal(fin, fin0)
+    jy, jfin = jops.ssd_chunked(jx, jdt, jA, jB, jC, chunk=256, interpret=True)
+    np.testing.assert_allclose(_np(y), _np(jy), **_tol(dtype))
+    np.testing.assert_allclose(_np(fin), _np(jfin), **_tol(dtype))
+
+
 # ---------------------------------------------------------------------------
 # the full op: intra-chunk part + inter-chunk scan
 # ---------------------------------------------------------------------------
@@ -170,6 +280,10 @@ def _z(*shape, dtype=torch.float32):
      ValueError),
     ((_z(1, 1, 4, 2, 8), _z(1, 1, 4, 2), _z(2), _z(1, 1, 4, 512), _z(1, 1, 4, 512)),
      ValueError),
+    ((_z(1, 1, 4, 2, 8), _z(1, 1, 4, 2), _z(3), _z(1, 1, 4, 8), _z(1, 1, 4, 8)), ValueError),
+    ((_z(1, 1, 4, 2, 8), _z(1, 1, 4, 2), _z(2), _z(1, 1, 4, 8), _z(1, 1, 4, 16)), ValueError),
+    ((_z(1, 1, 4, 2, 8, dtype=torch.bfloat16), _z(1, 1, 4, 2), _z(2),
+      _z(1, 1, 4, 8, dtype=torch.bfloat16), _z(1, 1, 4, 8)), TypeError),
 ])
 def test_ssd_cuda_wrapper_validates_before_launch(args, err):
     with pytest.raises(err):
