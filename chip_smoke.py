@@ -36,13 +36,28 @@ Phases, each printing one JSON line:
    CPU (which the CPU tests hold against the JAX reference);
 7. ``equiv``   — SoA on the card against the port's own scalar engine
    (structural invariants exact, pooled KS <= 0.08, CI overlap);
-8. ``profile`` — the round loop over the main path's first 100 rounds at
+8. ``lockstep`` — ``run(spec, seeds=range(8), device="cuda")`` with no
+   backend for commute x cyc / cyc_s / tp_driven / ads_tile goes to the
+   lockstep engine (one batch, no kernel launched) and gives the scalar
+   engine's report digests; degraded_commute with ``backend="soa",
+   fallback=True`` falls back to lockstep (scalar digests) and with
+   ``fallback=False`` raises ``SoaUnsupported``; host wall of the lockstep
+   fan against the scalar loop;
+9. ``sweep``   — ``sweep(n_scenarios=4, policies=(ads_tile, tp_driven),
+   backend="soa", device="cuda", jobs=1)`` with every launch counter set to
+   0 just before and read just after (the fused allocator launched, the
+   standalone grant not), the same sweep on lockstep (the same cells and
+   cell keys; the equiv gate on each policy's reports), a lockstep
+   campaign run twice into a temporary cache (the repeat executes no
+   cell), and a recorded lockstep lane exported with
+   ``export_chrome_trace`` and checked with ``validate_trace``;
+10. ``profile`` — the round loop over the main path's first 100 rounds at
    R=1024, for ads_tile and tp_driven: wall ms, kernels per round, device
    busy ms and idle share (torch.profiler), the fused allocator's device ms
    and launches per round, the loop's peak device memory; every 10th
    allocation replayed through kernel and plain version (equal), and 20
    rounds under a dispatch mode that fails on any (R, W, W) output;
-9. ``serve``   — the LM serving path, for each arch of ``SERVE_ARCHS`` in
+11. ``serve``   — the LM serving path, for each arch of ``SERVE_ARCHS`` in
    turn (each freed before the next is built): ``ServingEngine`` at full
    width in bf16 (random weights from seed 0) with the reference
    launcher's traffic (12 requests, prompt 16, 16 new tokens, batch 4,
@@ -56,19 +71,19 @@ Phases, each printing one JSON line:
    recurrentgemma-9b one long request on the same weights (``serve_long``:
    prompt 1024 / 2032, launches asserted, first-token latency, a profiled
    prefill's device ms and the SSD / RG-LRU kernel's share of it);
-10. ``timing`` — kernel, plain-version, library and bound times at each
+12. ``timing`` — kernel, plain-version, library and bound times at each
    path's shapes, then the ``kernels`` line; ``moe_gmm`` is also held on
    granite-moe's own expert weights against the float32 references and a
    float64 oracle (``TOL_MOE_MODEL``), and with ``--moe-baseline
    OTHER/moe_gmm.cu`` another build of it is timed beside this one;
-11. ``flash_ab`` (only with ``--flash-baseline OTHER/src``) — flash
+13. ``flash_ab`` (only with ``--flash-baseline OTHER/src``) — flash
    attention's per-call and device time at the serve shapes from another
    tree and from this one, each in a fresh process;
-12. ``soa_ab`` (only with ``--soa-baseline OTHER/src``) — the SoA main path
+14. ``soa_ab`` (only with ``--soa-baseline OTHER/src``) — the SoA main path
    (ads_tile and tp_driven, cold and warm) and its 100-round profile from
    another tree and from this one, each in a fresh process, in the order
    baseline, this, this, baseline;
-13. ``ssm_ab`` (only with ``--ssm-baseline OTHER/src``) — ``ssd_intra_chunk``
+15. ``ssm_ab`` (only with ``--ssm-baseline OTHER/src``) — ``ssd_intra_chunk``
    and ``rglru_scan`` per-call and device ms at their long and serve shapes
    (``SSM_AB_CASES``) from another tree and from this one, each in a fresh
    process, in the same order.
@@ -82,6 +97,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -104,11 +120,13 @@ from repro_torch.models.mamba2 import ssd_chunked as ssd_chunked_plain  # noqa: 
 from repro_torch.serving import EngineConfig, Request, ServingEngine  # noqa: E402
 from repro_torch.core.sim import soa  # noqa: E402
 from repro_torch.core.sim import soa_kernels as K  # noqa: E402
-from repro_torch.core.sim.batch import sample_trace_batch  # noqa: E402
+from repro_torch.core.sim.batch import report_digest, sample_trace_batch  # noqa: E402
 from repro_torch.core.sim.trace import build_skeleton  # noqa: E402
-from repro_torch.obs import metrics  # noqa: E402
-from repro_torch.scenarios import ScenarioSpec, get_scenario, run  # noqa: E402
-from repro_torch.scenarios import runner  # noqa: E402
+from repro_torch.obs import TraceRecorder, export_chrome_trace, metrics  # noqa: E402
+from repro_torch.obs import validate_trace  # noqa: E402
+from repro_torch.scenarios import ScenarioSpec, aggregate_sweep, get_scenario  # noqa: E402
+from repro_torch.scenarios import run, runner, sweep  # noqa: E402
+from repro_torch.sweeps import CampaignSpec, cell_key, run_campaign  # noqa: E402
 
 #: NVIDIA H100 SXM data sheet: HBM3 bandwidth, non-tensor fp32 rate and
 #: dense bf16 tensor-core rate
@@ -117,7 +135,7 @@ F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 
 PHASES = ("device", "build", "kernel", "sampler", "main", "loop", "equiv",
-          "profile", "serve", "timing")
+          "lockstep", "sweep", "profile", "serve", "timing")
 KERNELS = ("ladder_grant", "flash_attention", "moe_gmm", "ssd_intra_chunk", "rglru_scan")
 MAIN_R = 1024
 KS_TOL = 0.08
@@ -909,6 +927,171 @@ def phase_equiv():
             cis[metric] = [ca, cb]
         res[policy] = dict(ks=ks, ci_scalar_vs_soa=cis)
     emit("equiv", scenario="commute", seeds=seeds, **res)
+
+
+#: the lockstep phase: commute x every policy of the SoA backend, seeds 0-7
+LOCKSTEP_POLICIES = ("cyc", "cyc_s", "tp_driven", "ads_tile")
+LOCKSTEP_SEEDS = list(range(8))
+#: the sweep phase: the runner's sweep() at its default drive length
+SWEEP = dict(n_scenarios=4, policies=("ads_tile", "tp_driven"))
+
+
+class _Spy:
+    """Counts the lockstep batches ``run()`` starts (``run_batch`` in the
+    runner's namespace) while it is installed."""
+
+    def __init__(self):
+        self.calls = []
+        self._orig = runner.run_batch
+
+    def __enter__(self):
+        def counted(sims):
+            self.calls.append(len(sims))
+            return self._orig(sims)
+        runner.run_batch = counted
+        return self
+
+    def __exit__(self, *exc):
+        runner.run_batch = self._orig
+
+
+def _digests(reports):
+    return [report_digest(r) for r in reports]
+
+
+def phase_lockstep():
+    """``run()`` with no backend goes to the lockstep engine, and its
+    reports are the scalar engine's bit for bit; a spec outside the SoA
+    support set falls back to lockstep.  Walls are host numbers: both
+    engines are host code and launch nothing on the card."""
+    res = {}
+    for policy in LOCKSTEP_POLICIES:
+        spec = ScenarioSpec(scenario=get_scenario("commute"), policy=policy)
+        _zero_counts()
+        with _Spy() as spy:
+            t = time.perf_counter()
+            got = run(spec, seeds=LOCKSTEP_SEEDS, device="cuda")
+            lock_s = time.perf_counter() - t
+        check(spy.calls == [len(LOCKSTEP_SEEDS)],
+              f"lockstep {policy}: default backend ran batches {spy.calls}")
+        check(_counts() == dict.fromkeys(COUNTED, 0),
+              f"lockstep {policy}: exact engines launched kernels {_counts()}")
+        t = time.perf_counter()
+        want = run(spec, seeds=LOCKSTEP_SEEDS, backend="scalar", device="cuda")
+        scalar_s = time.perf_counter() - t
+        check(_digests(got) == _digests(want), f"lockstep {policy}: digests differ")
+        res[policy] = dict(host_lockstep_s=lock_s, host_scalar_s=scalar_s,
+                           speedup=scalar_s / lock_s)
+    spec = ScenarioSpec(scenario=get_scenario("degraded_commute"), policy="ads_tile")
+    check(not runner.soa_usable(spec)[0], "degraded_commute inside the SoA support set")
+    with _Spy() as spy:
+        got = run(spec, seeds=LOCKSTEP_SEEDS, backend="soa", fallback=True, device="cuda")
+    check(spy.calls == [len(LOCKSTEP_SEEDS)], f"SoA fallback ran batches {spy.calls}")
+    want = run(spec, seeds=LOCKSTEP_SEEDS, backend="scalar", device="cuda")
+    check(_digests(got) == _digests(want), "SoA fallback: digests differ from scalar")
+    try:
+        run(spec, seeds=LOCKSTEP_SEEDS, backend="soa", fallback=False, device="cuda")
+    except soa.SoaUnsupported:
+        raised = True
+    else:
+        raised = False
+    check(raised, "fallback=False did not raise SoaUnsupported")
+    emit("lockstep", scenario="commute", seeds=len(LOCKSTEP_SEEDS), clock="host",
+         fallback="degraded_commute -> lockstep, digests equal scalar", **res)
+
+
+def _swept(backend, **kw):
+    """One sweep in this process (jobs=1, so the launch counters see the
+    card's work), with each cell's (spec, report) captured as the runner
+    summarises it."""
+    cells = []
+    orig = runner.summarize
+
+    def capture(spec, report):
+        cells.append((spec, report))
+        return orig(spec, report)
+
+    runner.summarize = capture
+    try:
+        _zero_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            t = time.perf_counter()
+            rows = sweep(**SWEEP, backend=backend, jobs=1, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = _counts()
+    finally:
+        runner.summarize = orig
+    return rows, cells, launches, wall
+
+
+def phase_sweep():
+    """``sweep()`` on the SoA backend launches the fused allocator on the
+    card and agrees with the lockstep sweep of the same cells under the
+    equiv phase's gate; campaigns serve repeats from the cache; a
+    recorded run exports a valid Chrome trace."""
+    rows_s, cells_s, launches, soa_s = _swept("soa", device="cuda")
+    check(launches["alloc_ladder"] > 0, f"SoA sweep launched no allocator: {launches}")
+    check(launches["ladder_grant"] == 0, f"SoA sweep launched the grant: {launches}")
+    rows_l, cells_l, launches_l, lock_s = _swept("lockstep", device="cuda")
+    check(launches_l == dict.fromkeys(COUNTED, 0), f"lockstep sweep launched {launches_l}")
+    ident = [(r["script"], r["policy"], r["seed"]) for r in rows_l]
+    check(len(rows_s) == len(rows_l) == SWEEP["n_scenarios"] * len(SWEEP["policies"]),
+          f"sweep rows {len(rows_s)} / {len(rows_l)}")
+    check([(r["script"], r["policy"], r["seed"]) for r in rows_s] == ident,
+          "SoA and lockstep sweeps ran other cells")
+    check([list(r) for r in rows_s] == [list(r) for r in rows_l], "row fields differ")
+    check([cell_key(s) for s, _ in cells_s] == [cell_key(s) for s, _ in cells_l],
+          "SoA and lockstep sweeps have other cell keys")
+    gate = {}
+    for policy in SWEEP["policies"]:
+        a = [r for s, r in cells_l if s.policy == policy]
+        b = [r for s, r in cells_s if s.policy == policy]
+        for x, y in zip(a, b):
+            check(soa.structural_invariants(x) == soa.structural_invariants(y),
+                  f"sweep {policy}: structural invariants")
+        ks = soa.ks_statistic(_pooled(a), _pooled(b))
+        check(ks <= KS_TOL, f"sweep {policy}: KS {ks}")
+        cis = {}
+        for metric in ("violation_rate", "realloc_frac"):
+            ca = soa.mean_ci([getattr(r, metric) for r in a])
+            cb = soa.mean_ci([getattr(r, metric) for r in b])
+            check(soa.intervals_overlap(ca, cb, pad=1e-9), f"sweep {policy}: {metric} CI")
+            cis[metric] = [ca, cb]
+        gate[policy] = dict(ks=ks, ci_lockstep_vs_soa=cis)
+    agg_s, agg_l = aggregate_sweep(rows_s), aggregate_sweep(rows_l)
+    check(sorted(agg_s) == sorted(agg_l) == sorted(SWEEP["policies"]), "aggregates")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as td:
+        campaign = CampaignSpec(name="chip_smoke", n_scenarios=SWEEP["n_scenarios"],
+                                policies=SWEEP["policies"], backend="lockstep")
+        t = time.perf_counter()
+        first = run_campaign(campaign, cache_dir=td, jobs=1, device="cuda")
+        first_s = time.perf_counter() - t
+        t = time.perf_counter()
+        again = run_campaign(campaign, cache_dir=td, jobs=1, device="cuda")
+        again_s = time.perf_counter() - t
+        check(first.n_executed == len(rows_l) and again.n_executed == 0,
+              f"campaign executed {first.n_executed} then {again.n_executed} cells")
+        check(again.n_cached == len(rows_l), f"campaign repeat served {again.n_cached}")
+        check(first.rows == again.rows == rows_l, "campaign rows differ from the sweep's")
+        spec = ScenarioSpec(scenario=get_scenario("rate_churn"), policy="ads_tile")
+        rec = TraceRecorder()
+        recorded = run(spec, seeds=[0, 1], recorders={1: rec}, device="cuda")
+        plain = run(spec, seeds=[0, 1], device="cuda")
+        check(_digests(recorded) == _digests(plain), "recorder perturbed the lockstep run")
+        check(recorded[1].attribution is not None, "recorded lane has no attribution")
+        path = os.path.join(td, "trace.json")
+        doc = export_chrome_trace(rec, path)
+        with open(path, encoding="utf-8") as fh:
+            validate_trace(json.load(fh))
+        n_events = len(doc["traceEvents"])
+    emit("sweep", n_scenarios=SWEEP["n_scenarios"], policies=list(SWEEP["policies"]),
+         soa_launches=launches, host_soa_sweep_s=soa_s, host_lockstep_sweep_s=lock_s,
+         gate=gate, campaign=dict(cells=first.n_cells, first_executed=first.n_executed,
+                                  first_s=first_s, repeat_executed=again.n_executed,
+                                  repeat_s=again_s),
+         trace_events=n_events, clock="host")
 
 
 #: the archs the serve phase drives, in turn, at full width
@@ -2020,6 +2203,10 @@ def main():
         phase_loop()
     if "equiv" in only:
         phase_equiv()
+    if "lockstep" in only:
+        phase_lockstep()
+    if "sweep" in only:
+        phase_sweep()
     if "profile" in only:
         phase_profile()
     serve = {}

@@ -2,7 +2,8 @@
 
 The reference lists ten archs; the port carries the configs whose
 serving path it runs.  ``get_config`` on any other arch raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+``NotImplementedError`` naming, by title, the ROADMAP item that brings
+it.
 """
 from __future__ import annotations
 
@@ -26,14 +27,15 @@ ARCHS = (
 #: archs whose config and model path the port carries
 PORTED = ("granite_moe_1b", "phi4_mini_3p8b", "mamba2_2p7b", "recurrentgemma_9b")
 
-#: the ROADMAP item that ports each other arch
+#: what each other arch needs; all of it is the ROADMAP item
+#: "the rest of models/* and configs/*"
 UNPORTED = {
-    "gemma2_27b": "ROADMAP A9 (sliding-window and softcap layers)",
-    "gemma3_4b": "ROADMAP A9 (sliding-window layers, qk-norm, local rope base)",
-    "stablelm_12b": "ROADMAP A9 (dense stacks beyond phi4-mini)",
-    "deepseek_v2_236b": "ROADMAP A9 (MLA attention, shared experts)",
-    "phi3_vision_4p2b": "ROADMAP A9 (patch-embedding frontend)",
-    "musicgen_large": "ROADMAP A9 (codebook frontend)",
+    "gemma2_27b": "sliding-window and softcap layers",
+    "gemma3_4b": "sliding-window layers, qk-norm, local rope base",
+    "stablelm_12b": "dense stacks beyond phi4-mini",
+    "deepseek_v2_236b": "MLA attention, shared experts",
+    "phi3_vision_4p2b": "patch-embedding frontend",
+    "musicgen_large": "codebook frontend",
 }
 
 _ALIAS = {
@@ -54,7 +56,8 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     mod_name = _ALIAS.get(name, name.replace("-", "_").replace(".", "p"))
     if mod_name in UNPORTED:
         raise NotImplementedError(
-            f"{mod_name} is not ported to the PyTorch package yet: {UNPORTED[mod_name]}"
+            f"{mod_name} is not ported to the PyTorch package yet: "
+            f"ROADMAP: the rest of models/* and configs/* ({UNPORTED[mod_name]})"
         )
     if mod_name not in PORTED:
         raise ValueError(f"unknown arch {name!r}; known: {', '.join(ARCHS)}")

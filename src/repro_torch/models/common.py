@@ -3,7 +3,8 @@
 
 Functional torch over nested-dict parameter trees, in the reference's
 layouts (attention is ``(B, H, L, D)``).  The cross-entropy and the
-attention VJP wait for the training slice (ROADMAP A10).
+attention VJP wait for the training slice (ROADMAP: training/* and
+launch/train.py).
 """
 from __future__ import annotations
 

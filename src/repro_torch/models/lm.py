@@ -9,8 +9,9 @@ over layers is a Python loop over those stacks; the caches are
 written in place, one layer view at a time.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: MLA and leading dense layers (A9), the codebook and patch
-frontends (A9), and the training loss (A10).
+item by title: MLA and leading dense layers, the codebook and patch
+frontends ("the rest of models/* and configs/*"), and the training
+loss ("training/* and launch/train.py").
 """
 from __future__ import annotations
 
@@ -33,20 +34,21 @@ __all__ = ["LM", "init_params", "check_supported"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a
-    config whose stack the port does not carry yet."""
+    """Raise ``NotImplementedError`` naming the ROADMAP item, by title,
+    for a config whose stack the port does not carry yet."""
     if cfg.mla:
-        item = "A9 (MLA attention, deepseek_v2_236b)"
+        what = "MLA attention, deepseek_v2_236b"
     elif cfg.num_experts and (cfg.first_dense_layers or cfg.num_shared_experts):
-        item = "A9 (leading dense layers and shared experts, deepseek_v2_236b)"
+        what = "leading dense layers and shared experts, deepseek_v2_236b"
     elif cfg.num_codebooks:
-        item = "A9 (codebook frontend, musicgen_large)"
+        what = "codebook frontend, musicgen_large"
     elif cfg.num_patches:
-        item = "A9 (patch-embedding frontend, phi3_vision_4p2b)"
+        what = "patch-embedding frontend, phi3_vision_4p2b"
     else:
         return
     raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family} stack is not ported yet: ROADMAP {item}"
+        f"{cfg.name}: the {cfg.family} stack is not ported yet: "
+        f"ROADMAP: the rest of models/* and configs/* ({what})"
     )
 
 

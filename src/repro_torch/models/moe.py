@@ -9,8 +9,9 @@ combine.  The bucket FFN goes through
 the plain version on the CPU.
 
 Expert parallelism (the reference's ``shard_map`` over the 'model' mesh
-axis) comes with ``distribution/`` (ROADMAP A12); shared experts come
-with deepseek-v2 (ROADMAP A9).
+axis) comes with ``distribution/`` (ROADMAP: distribution/* and
+launch/{mesh,dryrun}.py); shared experts come with deepseek-v2 (ROADMAP:
+the rest of models/* and configs/*).
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ __all__ = ["moe_init", "route", "dispatch", "moe_apply"]
 def moe_init(gen, cfg: ModelConfig, *, device="cpu", stack: int = 0) -> Dict:
     if cfg.num_shared_experts:
         raise NotImplementedError(
-            "shared experts are not ported yet: ROADMAP A9 (deepseek_v2_236b)"
+            "shared experts are not ported yet: ROADMAP: the rest of "
+            "models/* and configs/* (deepseek_v2_236b)"
         )
     d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     dt = cfg.torch_dtype

@@ -7,8 +7,11 @@
   (ordered mode segments, transient bursts, sensor dropouts) plus a
   Markov-chain scenario generator;
 * :mod:`~repro_torch.scenarios.runner` — the :func:`run` entry point
-  (one spec, a seed fan, or a spec group) over the scalar engine and
-  the SoA backend on the card.
+  (one spec, a seed fan, or a spec group, over a selectable backend:
+  the scalar and lockstep engines on the host, the SoA backend on the
+  card) and multiprocessing Monte-Carlo sweeps;
+  :mod:`repro_torch.sweeps` layers content-addressed caching and
+  resumable campaigns on top.
 """
 from .modes import MODES, DrivingMode, get_mode, mode_names, register_mode
 from .script import (
@@ -29,14 +32,18 @@ from .script import (
 from .runner import (
     SWEEP_BACKENDS,
     BackendRegistry,
+    ItemFailure,
     ScenarioSpec,
     SweepBackend,
+    SweepReducer,
+    SweepRow,
     aggregate_sweep,
     build_trace,
     compile_portfolio,
     parallel_map,
     run,
     soa_usable,
+    summarize,
     sweep,
 )
 
@@ -61,13 +68,17 @@ __all__ = [
     "get_scenario",
     "SWEEP_BACKENDS",
     "BackendRegistry",
+    "ItemFailure",
     "ScenarioSpec",
     "SweepBackend",
+    "SweepReducer",
+    "SweepRow",
     "aggregate_sweep",
     "build_trace",
     "compile_portfolio",
     "parallel_map",
     "run",
     "soa_usable",
+    "summarize",
     "sweep",
 ]

@@ -1,32 +1,44 @@
-"""Scenario experiment runner: the :func:`run` entry point.
+"""Scenario experiment runner: one dispatching entry point + sweeps.
 
-:func:`run` owns backend selection and the per-spec fallback policy.
-This port carries two engines:
+:func:`run` is the single entry point for scenario simulation.  It owns
+backend selection and the per-spec fallback policy over three engines:
 
 * ``"scalar"`` — the per-event reference engine (host NumPy), one run
-  at a time; the port's semantics oracle;
+  at a time; the semantics oracle;
+* ``"lockstep"`` — the batched lockstep engine
+  (:func:`~repro_torch.core.sim.batch.run_batch`, host NumPy); each
+  lane's report is bit-identical to the scalar engine's;
 * ``"soa"`` — the structure-of-arrays Monte-Carlo backend, which
   advances every seed of one cell as ``(R, N)`` tensors on the card
-  (:mod:`repro_torch.core.sim.soa`).
+  (:mod:`repro_torch.core.sim.soa`); distributionally equivalent.
 
-Every entry point takes ``device="cuda"``.  Without a CUDA device it
-raises unless the caller passes ``device="cpu"``: a missing card is
-never routed around.  ``fallback=True`` only routes a spec that lies
-*outside the SoA support set* (a degraded scenario, a predictive
-replanner) to the scalar engine.
+``backend="auto"`` (the default) picks as the JAX package's runner
+does: the scalar engine for one run, lockstep for seed fans and
+trace-sharing groups, and never the SoA backend unless asked for by
+name.
 
-Not ported yet, and raising :class:`NotImplementedError` that names the
-ROADMAP item bringing them: ``backend="auto"`` and ``"lockstep"`` (A3,
-the lockstep engine), flight recorders (``spec.record``,
-``recorders=``) and ``sweep`` / ``aggregate_sweep`` / ``parallel_map``
-(A7, ``obs`` and ``sweeps``).
+Every entry point takes ``device="cuda"`` and resolves it first, for
+every backend: without a CUDA device it raises unless the caller
+passes ``device="cpu"``.  The exact engines run on the host whatever
+the device; the SoA backend runs on ``device``.  ``fallback=True`` only
+routes a spec outside the SoA support set (a degraded scenario, a
+predictive replanner, a recorder) to the lockstep or scalar engine.
+
+``sweep`` is the fleet-scale view: ``N`` Markov-sampled scenarios x
+policies, fanned out over a ``spawn`` process pool with deterministic
+per-scenario seeds, aggregated into per-policy and per-mode tables
+(streaming form: :class:`repro_torch.sweeps.SweepReducer`).  Passing
+``cache_dir=`` routes the sweep through the campaign service
+(:mod:`repro_torch.sweeps.service`): rows become content-addressed
+cache entries and repeated sweeps only execute new cells.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from collections import abc as _abc
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 from .._device import resolve_device
 from ..core.experiment import ExperimentSpec, build_stack, make_policy
@@ -36,11 +48,14 @@ from ..core.runtime import (
     SchedulePortfolio,
 )
 from ..core.sim import SimConfig, Simulator, SimReport
-from ..core.sim.batch import sample_trace_batch
+from ..core.sim.batch import LaneSimulator, run_batch, sample_trace_batch
 from ..core.sim.trace import Trace, build_skeleton, sample_trace
-from ..obs import metrics
+from ..obs import TraceRecorder, attribution_report, metrics
+from ..sweeps.executor import ItemFailure, LocalPoolExecutor
+from ..sweeps.reduce import SweepReducer
+from ..sweeps.rows import SweepRow
 from .modes import get_mode, register_mode
-from .script import ScenarioScript
+from .script import MarkovScenarioGenerator, ScenarioScript, default_generator
 
 __all__ = [
     "ScenarioSpec",
@@ -52,24 +67,18 @@ __all__ = [
     "run",
     "soa_usable",
     "parallel_map",
+    "ItemFailure",
+    "summarize",
+    "SweepRow",
+    "SweepReducer",
     "sweep",
     "aggregate_sweep",
 ]
 
-_NO_LOCKSTEP = (
-    "the lockstep engine is not ported yet (ROADMAP A3); use "
-    "backend='scalar' or backend='soa'"
-)
-_NO_OBS = (
-    "flight recorders are not ported yet (ROADMAP A7: obs); run without "
-    "spec.record / recorders="
-)
-_NO_SWEEPS = "sweeps are not ported yet (ROADMAP A7: sweeps)"
-
 
 @dataclasses.dataclass
 class ScenarioSpec(ExperimentSpec):
-    """One scenario run.
+    """One scenario run (picklable, so sweeps can ship it to workers).
 
     Extends :class:`~repro_torch.core.experiment.ExperimentSpec` — the
     workload fields (tiles, replicas, deadlines, ...) live there — with
@@ -103,11 +112,20 @@ class ScenarioSpec(ExperimentSpec):
     #: mode.  Ignored when a precompiled ``portfolio`` is supplied.
     target_miss: Optional[float] = None
     duration_s: Optional[float] = None          # None = the scenario's length
-    #: precompiled per-mode schedules; None compiles one per run
+    #: precompiled per-mode schedules; None compiles one per run.
+    #: sweep() fills this so N scenarios share one portfolio per policy
+    #: instead of recompiling identical GHA tables in every worker.
     portfolio: Optional[SchedulePortfolio] = None
-    #: mode definitions to (re-)register before running
+    #: mode definitions to (re-)register before running.  Spawned pool
+    #: workers re-import the bundled registry only, so custom modes
+    #: added via register_mode must travel with the spec; sweep() fills
+    #: this automatically from the generator's mode set.
     mode_defs: Optional[Dict[str, object]] = None
-    #: attach a flight recorder (not ported yet: raises when set)
+    #: attach a flight recorder (:mod:`repro_torch.obs`) to the run: the
+    #: report gains an ``attribution`` section (deadline-miss
+    #: decomposition) and the recorder itself is reachable through
+    #: ``run``'s ``recorders=`` argument for trace export.
+    #: Off by default — recording a sweep costs memory per run.
     record: bool = False
     #: autotuned portfolios only (``target_miss`` set): pin every mode
     #: to one common partition count.  False lets each mode keep its
@@ -223,6 +241,13 @@ SWEEP_BACKENDS = BackendRegistry(
         description="per-event reference engine, one run at a time",
     ),
     SweepBackend(
+        name="lockstep", kind="exact", batched=True,
+        description=(
+            "batched lockstep engine; per-lane reports bit-identical "
+            "to scalar"
+        ),
+    ),
+    SweepBackend(
         name="soa", kind="distributional", batched=True,
         description=(
             "structure-of-arrays torch backend on the card (ladder grant "
@@ -233,13 +258,11 @@ SWEEP_BACKENDS = BackendRegistry(
 )
 
 
-def _check_backend(backend: str) -> None:
-    if backend in ("auto", "lockstep"):
-        raise NotImplementedError(_NO_LOCKSTEP)
-    if backend not in SWEEP_BACKENDS:
-        raise ValueError(
-            f"unknown backend {backend!r} (choose from {SWEEP_BACKENDS.names()})"
-        )
+def _check_backend(backend: str, *, allow_auto: bool = False) -> None:
+    if backend in SWEEP_BACKENDS or (allow_auto and backend == "auto"):
+        return
+    choices = (("auto",) if allow_auto else ()) + SWEEP_BACKENDS.names()
+    raise ValueError(f"unknown backend {backend!r} (choose from {choices})")
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +347,9 @@ def _make_run_policy(spec: ScenarioSpec, portfolio: SchedulePortfolio):
     return policy
 
 
-def _sim_config(spec: ScenarioSpec, trace: Optional[Trace]) -> SimConfig:
+def _sim_config(
+    spec: ScenarioSpec, trace: Optional[Trace], rec: Optional[TraceRecorder],
+) -> SimConfig:
     scen = spec.scenario
     return SimConfig(
         duration_s=(
@@ -334,17 +359,109 @@ def _sim_config(spec: ScenarioSpec, trace: Optional[Trace]) -> SimConfig:
         drop_policy=spec.drop_policy,
         scenario=scen,
         trace=trace,
+        recorder=rec,
     )
 
 
 # ---------------------------------------------------------------------------
 # backend implementations (private; dispatch through run())
 # ---------------------------------------------------------------------------
-def _run_single(spec: ScenarioSpec, trace: Optional[Trace] = None) -> SimReport:
+def _run_single(
+    spec: ScenarioSpec,
+    trace: Optional[Trace] = None,
+    recorder: Optional[TraceRecorder] = None,
+) -> SimReport:
     """Scalar reference engine: one scenario end-to-end."""
     wf, model, sched, portfolio = _prepare_run(spec)
     policy = _make_run_policy(spec, portfolio)
-    return Simulator(wf, model, sched, policy, _sim_config(spec, trace)).run()
+    rec = recorder
+    if rec is None and spec.record:
+        rec = TraceRecorder()
+    sim = Simulator(
+        wf, model, sched, policy, _sim_config(spec, trace, rec),
+    )
+    report = sim.run()
+    if rec is not None:
+        report.attribution = attribution_report(sim, rec)
+    return report
+
+
+def _run_lockstep_seeds(
+    spec: ScenarioSpec,
+    seeds: Sequence[int],
+    recorders: Optional[Mapping[int, TraceRecorder]] = None,
+) -> List[SimReport]:
+    """Lockstep engine, seed fan: ``len(seeds)`` Monte-Carlo drives of
+    one spec as lanes of one batch.
+
+    Each lane's report is bit-identical to the scalar engine run with
+    that seed — the stack/portfolio setup is shared, the
+    stream-contract trace is batch-materialized once on the host
+    (:func:`~repro_torch.core.sim.batch.sample_trace_batch` with
+    ``device=None``: the torch sampler's last-ulp differences would
+    break bit-identity) and the lanes advance in lockstep
+    (:func:`~repro_torch.core.sim.batch.run_batch`).
+
+    ``recorders`` attaches flight recorders to individual lanes by seed
+    *index* — a recorded lane de-batches to the scalar per-lane driver
+    (recorder hooks live on the engine paths the fused loop elides) but
+    stays inside the lockstep loop; ``spec.record`` attaches one to
+    every lane.
+    """
+    wf, model, sched, portfolio = _prepare_run(spec)
+    scen = spec.scenario
+    duration = scen.duration_s if spec.duration_s is None else spec.duration_s
+    skel = build_skeleton(wf, scen, duration)
+    btrace = sample_trace_batch(skel, model, scen, seeds)
+
+    sims: List[LaneSimulator] = []
+    recs: List[Optional[TraceRecorder]] = []
+    for k, s in enumerate(seeds):
+        rec = recorders.get(k) if recorders is not None else None
+        if rec is None and spec.record:
+            rec = TraceRecorder()
+        lane_spec = dataclasses.replace(spec, seed=int(s))
+        sims.append(LaneSimulator(
+            wf, model, sched, _make_run_policy(lane_spec, portfolio),
+            _sim_config(lane_spec, btrace.lane(k), rec),
+        ))
+        recs.append(rec)
+    reports = run_batch(sims)
+    for sim, rec, report in zip(sims, recs, reports):
+        if rec is not None:
+            report.attribution = attribution_report(sim, rec)
+    return reports
+
+
+def _run_lockstep_group(
+    specs: Sequence[ScenarioSpec],
+    trace: Optional[Trace] = None,
+    recorders: Optional[Mapping[int, TraceRecorder]] = None,
+) -> List[SimReport]:
+    """Lockstep engine, policy group: several specs sharing (scenario,
+    seed, workload), differing in policy/replan, as lanes of one batch
+    sharing ``trace``.
+
+    Reports are bit-identical to the scalar engine per spec; this is
+    the batched path under :func:`sweep`.
+    """
+    sims: List[LaneSimulator] = []
+    recs: List[Optional[TraceRecorder]] = []
+    for i, spec in enumerate(specs):
+        wf, model, sched, portfolio = _prepare_run(spec)
+        rec = recorders.get(i) if recorders is not None else None
+        if rec is None and spec.record:
+            rec = TraceRecorder()
+        sims.append(LaneSimulator(
+            wf, model, sched, _make_run_policy(spec, portfolio),
+            _sim_config(spec, trace, rec),
+        ))
+        recs.append(rec)
+    reports = run_batch(sims)
+    for sim, rec, report in zip(sims, recs, reports):
+        if rec is not None:
+            report.attribution = attribution_report(sim, rec)
+    return reports
 
 
 #: per-process memo of SoA window pads that proved necessary, keyed by
@@ -430,54 +547,66 @@ def run(
     specs: Union[ScenarioSpec, Sequence[ScenarioSpec]],
     *,
     seeds: Optional[Sequence[int]] = None,
-    backend: str = "soa",
+    backend: str = "auto",
     trace: Optional[Trace] = None,
-    recorders=None,
+    recorders: Optional[Mapping[int, TraceRecorder]] = None,
     options=None,
     fallback: bool = True,
     device="cuda",
 ) -> List[SimReport]:
     """Run scenario simulations; always returns one report per run.
 
-    Three call shapes:
+    The one entry point over every engine.  Three call shapes:
 
     * ``run(spec)`` — a single drive (``run(spec)[0]`` is the report);
     * ``run(spec, seeds=[...])`` — a Monte-Carlo *seed fan* of one
       spec, one report per seed;
-    * ``run([spec_a, spec_b, ...])`` — a *group* of specs, one report
-      per spec, in order.
+    * ``run([spec_a, spec_b, ...])`` — a *group* of specs (typically
+      one scenario+seed across policies), one report per spec, in
+      order.
 
     ``backend`` selects the engine (see :data:`SWEEP_BACKENDS`):
 
-    * ``"soa"`` (default) — the distributional backend on ``device``.
-      Specs outside its support set run on the scalar engine when
-      ``fallback=True`` or raise ``SoaUnsupported`` when
-      ``fallback=False``.
-    * ``"scalar"`` — the exact per-event reference engine (host code).
+    * ``"auto"`` (default) — deterministic best choice: the scalar
+      reference engine for a single run, the bit-identical lockstep
+      engine for seed fans, and for groups the lockstep engine over
+      maximal sub-groups that can share a trace (same scenario, seed
+      and workload), sampling each shared trace once.  Never picks the
+      SoA backend — its rows are only distributionally equivalent, so
+      it must be asked for by name.
+    * ``"scalar"`` / ``"lockstep"`` — force that exact-family engine.
+    * ``"soa"`` — the distributional backend on ``device``.  Specs it
+      cannot run (unsupported feature, attached recorder) fall back to
+      an exact engine when ``fallback=True`` (the sweep default) or
+      raise ``SoaUnsupported`` when ``fallback=False``.
 
     ``device`` defaults to ``"cuda"`` and is checked first, for every
     backend: without a CUDA device the call raises unless the caller
-    passes ``device="cpu"``.
+    passes ``device="cpu"``.  The exact engines run on the host.
 
     ``trace`` injects presampled randomness (:func:`build_trace`) into
-    scalar runs.  ``options`` passes
-    :class:`~repro_torch.core.sim.soa.SoaOptions` to the SoA backend.
+    exact-engine runs; a group sharing one trace must share (scenario,
+    seed, workload).  Incompatible with ``seeds=`` (a trace carries
+    one seed's draws) and with the SoA backend (it materializes its
+    own trace batch).
+
+    ``recorders`` maps run index (seed index for fans, spec index for
+    groups, ``0`` for a single spec) to a caller-owned
+    :class:`~repro_torch.obs.TraceRecorder`; ``spec.record`` instead
+    attaches an internal one to every run.  Either way recorded reports
+    carry an ``attribution`` section.
+
+    ``options`` passes :class:`~repro_torch.core.sim.soa.SoaOptions`
+    through to the SoA backend (SoA-only).
     """
     dev = resolve_device(device)
     single = isinstance(specs, ScenarioSpec)
     spec_list: List[ScenarioSpec] = [specs] if single else list(specs)
-    _check_backend(backend)
-    if recorders or any(s.record for s in spec_list):
-        raise NotImplementedError(_NO_OBS)
+    _check_backend(backend, allow_auto=True)
     if not spec_list:
         return []
     if options is not None and backend != "soa":
         raise ValueError("options= configures the SoA backend; pass backend='soa'")
-    if backend == "soa" and trace is not None:
-        raise ValueError(
-            "the SoA backend materializes its own device trace; "
-            "trace= is only valid for the scalar backend"
-        )
     if seeds is not None:
         if not single:
             raise ValueError(
@@ -487,45 +616,337 @@ def run(
         if trace is not None:
             raise ValueError(
                 "trace= carries one seed's presampled draws; it cannot "
-                "be combined with seeds="
+                "be combined with seeds= (the engine batch-materializes "
+                "the fan's traces itself)"
             )
-        spec = spec_list[0]
-        seeds = [int(s) for s in seeds]
-        if backend == "soa":
-            return _soa_or_fallback(spec, seeds, options, fallback, dev)
-        return [_run_single(dataclasses.replace(spec, seed=s)) for s in seeds]
+        return _dispatch_seed_fan(
+            spec_list[0], [int(s) for s in seeds], backend, recorders,
+            options, fallback, dev,
+        )
+    return _dispatch_group(
+        spec_list, backend, trace, recorders, options, fallback, dev,
+    )
+
+
+def _dispatch_seed_fan(
+    spec: ScenarioSpec,
+    seeds: List[int],
+    backend: str,
+    recorders: Optional[Mapping[int, TraceRecorder]],
+    options,
+    fallback: bool,
+    dev,
+) -> List[SimReport]:
     if backend == "soa":
+        ok, why = soa_usable(spec)
+        if ok and recorders:
+            ok, why = False, "recorders need engine hooks the SoA kernel elides"
+        if ok:
+            return _run_soa(spec, seeds, options, dev)
+        if not fallback:
+            from ..core.sim import soa
+
+            raise soa.SoaUnsupported(why)
+        return _run_lockstep_seeds(spec, seeds, recorders)
+    if backend == "scalar":
+        out: List[SimReport] = []
+        for k, s in enumerate(seeds):
+            rec = recorders.get(k) if recorders is not None else None
+            out.append(
+                _run_single(dataclasses.replace(spec, seed=int(s)), None, rec)
+            )
+        return out
+    # auto / lockstep: the batched exact engine is the right default
+    return _run_lockstep_seeds(spec, seeds, recorders)
+
+
+def _dispatch_group(
+    spec_list: List[ScenarioSpec],
+    backend: str,
+    trace: Optional[Trace],
+    recorders: Optional[Mapping[int, TraceRecorder]],
+    options,
+    fallback: bool,
+    dev,
+) -> List[SimReport]:
+    recorders = recorders or {}
+    if backend == "soa":
+        if trace is not None:
+            raise ValueError(
+                "the SoA backend materializes its own device trace; "
+                "trace= is only valid for exact backends"
+            )
+        out: List[SimReport] = []
+        for i, spec in enumerate(spec_list):
+            rec = recorders.get(i)
+            ok, why = soa_usable(spec)
+            if ok and rec is not None:
+                ok, why = False, "recorders need engine hooks the SoA kernel elides"
+            if ok:
+                out.append(_run_soa(spec, [spec.seed], options, dev)[0])
+            elif fallback:
+                out.append(_run_single(spec, None, rec))
+            else:
+                from ..core.sim import soa
+
+                raise soa.SoaUnsupported(why)
+        return out
+    if backend == "lockstep":
+        return _run_lockstep_group(spec_list, trace, recorders or None)
+    if backend == "scalar":
         return [
-            _soa_or_fallback(s, [s.seed], options, fallback, dev)[0]
-            for s in spec_list
+            _run_single(s, trace, recorders.get(i))
+            for i, s in enumerate(spec_list)
         ]
-    return [_run_single(s, trace) for s in spec_list]
+    # auto
+    if len(spec_list) == 1:
+        return [_run_single(spec_list[0], trace, recorders.get(0))]
+    if trace is not None:
+        # the caller vouches the group shares the trace's (scenario,
+        # seed, workload) — the batch engine's skeleton guard backstops
+        return _run_lockstep_group(spec_list, trace, recorders or None)
+    out2: List[Optional[SimReport]] = [None] * len(spec_list)
+    for idxs in _auto_groups(spec_list):
+        if len(idxs) == 1:
+            i = idxs[0]
+            out2[i] = _run_single(spec_list[i], None, recorders.get(i))
+        else:
+            sub = [spec_list[i] for i in idxs]
+            shared = build_trace(sub[0])
+            sub_recs = {
+                j: recorders[i]
+                for j, i in enumerate(idxs) if i in recorders
+            }
+            reports = _run_lockstep_group(sub, shared, sub_recs or None)
+            for j, i in enumerate(idxs):
+                out2[i] = reports[j]
+    return out2  # type: ignore[return-value]
 
 
-def _soa_or_fallback(spec, seeds, options, fallback, dev) -> List[SimReport]:
-    ok, why = soa_usable(spec)
-    if ok:
-        return _run_soa(spec, seeds, options, dev)
-    if not fallback:
-        from ..core.sim import soa
+#: ExperimentSpec/ScenarioSpec fields that shape the sampled trace and
+#: skeleton; specs agreeing on all of them (plus scenario and seed) can
+#: share one trace as lockstep lanes.  Policy/replan fields are absent
+#: on purpose — draws are policy-independent (counter-based streams).
+_TRACE_FIELDS = (
+    "seed", "duration_s", "tiles", "cockpit_replicas", "load_factor",
+    "deadline_s", "q", "num_partitions", "p99_ratio", "dram_utilization",
+    "drop_policy",
+)
 
-        raise soa.SoaUnsupported(why)
-    return [_run_single(dataclasses.replace(spec, seed=int(s))) for s in seeds]
+
+def _auto_groups(spec_list: Sequence[ScenarioSpec]) -> List[List[int]]:
+    """Partition specs into trace-sharing groups (order-stable).
+
+    Keys are compared by equality, not hashed: the profile token holds
+    ``DrivingMode`` values, whose dict fields make them unhashable (the
+    JAX package's dict-keyed version raises ``TypeError`` there, so its
+    ``run([...])`` of two or more specs without ``trace=`` fails).
+    """
+    keys: List[tuple] = []
+    groups: List[List[int]] = []
+    for i, spec in enumerate(spec_list):
+        key = (
+            spec.scenario.cache_token(),
+            spec.scenario.profile_token(),
+            tuple(getattr(spec, f) for f in _TRACE_FIELDS),
+        )
+        for k, group in zip(keys, groups):
+            if k == key:
+                group.append(i)
+                break
+        else:
+            keys.append(key)
+            groups.append([i])
+    return groups
 
 
 # ---------------------------------------------------------------------------
-# not ported yet
+# process-pool utility
 # ---------------------------------------------------------------------------
-def parallel_map(*_args, **_kw):
-    """Process-pool map of the reference's sweep service (not ported)."""
-    raise NotImplementedError(_NO_SWEEPS)
+def parallel_map(
+    fn: Callable,
+    items: Sequence,
+    jobs: Optional[int] = None,
+    *,
+    return_errors: bool = False,
+) -> List:
+    """``[fn(x) for x in items]``, fanned out over ``jobs`` processes.
+
+    Thin wrapper over :class:`repro_torch.sweeps.LocalPoolExecutor`:
+    order preserved, ``spawn`` start method (forking after CUDA has
+    been initialised is unsafe), ``jobs=None`` uses the CPU count
+    capped at the number of items, ``jobs`` <= 1 or a single item
+    degrades to a plain in-process loop, so ``fn`` and every item must
+    be picklable.
+
+    Error handling is per-item: a failing item does not abort the pool
+    mid-pass nor discard its siblings' completed results.  With
+    ``return_errors=True`` failures come back in place as
+    :class:`~repro_torch.sweeps.ItemFailure` entries; otherwise the
+    first failure's original exception re-raises after the full pass.
+    """
+    return LocalPoolExecutor(jobs).map(fn, items, return_errors=return_errors)
 
 
-def sweep(*_args, **_kw):
-    """Monte-Carlo sweep over Markov scenarios (not ported)."""
-    raise NotImplementedError(_NO_SWEEPS)
+# ---------------------------------------------------------------------------
+# Monte-Carlo sweeps
+# ---------------------------------------------------------------------------
+def summarize(spec: ScenarioSpec, report: SimReport) -> Dict[str, object]:
+    """Flatten one run into a picklable summary row — the dict form of
+    :class:`repro_torch.sweeps.SweepRow` (``SweepRow.from_report`` is
+    the typed equivalent; the dict shape is what the result cache
+    stores)."""
+    return SweepRow.from_report(spec, report).to_dict()
 
 
-def aggregate_sweep(*_args, **_kw):
-    """Per-policy aggregation of sweep rows (not ported)."""
-    raise NotImplementedError(_NO_SWEEPS)
+def _run_one(spec: ScenarioSpec) -> Dict[str, object]:
+    return summarize(spec, _run_single(spec))
+
+
+def _run_group(
+    specs: Sequence[ScenarioSpec], backend: str = "lockstep", device="cuda",
+) -> List[Dict[str, object]]:
+    """Run every spec of one scenario seed, sampling its trace once.
+
+    All specs in a group share (scenario, seed, workload) and differ
+    only in policy/replan, so one trace serves them all: the paired
+    policy comparison stays exact at the job level while the sampling
+    cost is paid once instead of once per policy.
+
+    ``backend`` selects the engine (see :data:`SWEEP_BACKENDS`):
+
+    * ``"lockstep"`` (default) — the batched lockstep engine; per-lane
+      reports are bit-identical to the scalar path, so sweep rows are
+      unchanged.
+    * ``"scalar"`` — the per-event reference engine, one spec at a
+      time.
+    * ``"soa"`` — the structure-of-arrays backend on ``device``.  Rows
+      are distributionally (not bitwise) equivalent to the other two.
+      A sweep group holds *one* seed per scenario, the SoA backend's
+      worst shape, so this selector exists for apples-to-apples
+      validation sweeps; throughput work should call ``run(spec,
+      seeds=..., backend="soa")`` with many seeds per cell instead.
+      Specs outside the SoA support set fall back to the scalar engine.
+
+    ``device`` is resolved first, for every backend.
+    """
+    _check_backend(backend)
+    dev = resolve_device(device)
+    if backend == "soa":
+        reports = run(list(specs), backend="soa", fallback=True, device=dev)
+        return [summarize(s, r) for s, r in zip(specs, reports)]
+    if len(specs) <= 1 or backend == "scalar":
+        return [summarize(s, _run_single(s)) for s in specs]
+    trace = build_trace(specs[0])
+    reports = _run_lockstep_group(specs, trace)
+    return [summarize(s, r) for s, r in zip(specs, reports)]
+
+
+def sweep(
+    n_scenarios: int,
+    policies: Sequence[str] = ("ads_tile", "tp_driven"),
+    duration_s: float = 2.0,
+    seed: int = 0,
+    jobs: Optional[int] = None,
+    generator: Optional[MarkovScenarioGenerator] = None,
+    replan: bool = True,
+    backend: str = "lockstep",
+    cache_dir=None,
+    manifest_path=None,
+    device="cuda",
+    **spec_kw,
+) -> List[Dict[str, object]]:
+    """Monte-Carlo sweep: ``n_scenarios`` Markov drives x ``policies``.
+
+    Scenario ``i`` is sampled with the deterministic seed
+    ``seed * 100003 + i`` and simulated with the same seed for every
+    policy, so policy comparisons are paired and the whole sweep is
+    reproducible from ``seed`` alone.  The unit of parallel work is one
+    *scenario* (all its policies run in the same worker, sharing one
+    sampled trace and one cached structural skeleton).
+
+    ``backend`` selects the per-group engine (see :func:`_run_group`):
+    ``"lockstep"`` (default, bit-identical rows), ``"scalar"``
+    (reference engine), or ``"soa"`` (distributionally-equivalent
+    backend on ``device``; per-scenario set-up makes it the validation
+    shape here, not the throughput shape — use ``run(spec, seeds=...,
+    backend="soa")`` directly for many-seed cells).  ``device`` is
+    resolved first and travels to every worker; it is not part of a
+    cell key.
+
+    ``cache_dir`` routes the sweep through the campaign service
+    (:func:`repro_torch.sweeps.run_campaign`): rows are stored
+    content-addressed on disk, so an identical repeat sweep executes
+    zero cells and an extended one executes only the new cells.
+    ``manifest_path`` additionally writes the resumable campaign
+    manifest there (requires ``cache_dir``).  Rows are identical to the
+    direct path either way.
+    """
+    dev = resolve_device(device)
+    if cache_dir is not None:
+        from ..sweeps.service import CampaignSpec, run_campaign
+
+        campaign = CampaignSpec(
+            name="sweep",
+            n_scenarios=n_scenarios,
+            policies=tuple(policies),
+            scenario_duration_s=duration_s,
+            seed=seed,
+            replan=replan,
+            backend=backend,
+            generator=generator,
+            spec_kw=dict(spec_kw),
+        )
+        return run_campaign(
+            campaign, cache_dir=cache_dir, manifest_path=manifest_path,
+            jobs=jobs, device=dev,
+        ).rows
+    if manifest_path is not None:
+        raise ValueError("manifest_path= requires cache_dir= (campaign mode)")
+    gen = generator or default_generator()
+    all_modes = sorted(gen.transitions)
+    mode_defs = {m: get_mode(m) for m in all_modes}
+    groups: List[List[ScenarioSpec]] = []
+    portfolios: Dict[str, SchedulePortfolio] = {}
+    for i in range(n_scenarios):
+        s_i = seed * 100003 + i
+        script = gen.sample(duration_s, seed=s_i)
+        group: List[ScenarioSpec] = []
+        for pol in policies:
+            spec = ScenarioSpec(
+                scenario=script, policy=pol, replan=replan, seed=s_i,
+                mode_defs=mode_defs,
+                **spec_kw,
+            )
+            # one portfolio per policy, covering every mode the
+            # generator can emit — compiled here once instead of per
+            # worker run
+            if pol not in portfolios:
+                portfolios[pol] = compile_portfolio(spec, all_modes)
+            group.append(dataclasses.replace(spec, portfolio=portfolios[pol]))
+        groups.append(group)
+    rows_per_group = parallel_map(
+        functools.partial(_run_group, backend=backend, device=str(dev)),
+        groups, jobs,
+    )
+    return [row for rows in rows_per_group for row in rows]
+
+
+def aggregate_sweep(
+    rows: Sequence[Mapping[str, object]],
+) -> Dict[str, Dict[str, object]]:
+    """Aggregate sweep rows into per-policy means (and per-mode means).
+
+    Returns ``{policy: {n, violation_rate, task_miss_rate,
+    realloc_frac, per_mode: {mode: {...}}}}``.  Rows from recorded runs
+    (``ScenarioSpec(record=True)``) additionally aggregate online into
+    an ``attribution`` entry: summed lateness decomposed into
+    queueing / realloc-stall / re-stagger / duration-tail seconds, so a
+    sweep can print *why* a policy misses, not just how often.
+
+    Thin batch wrapper over the streaming
+    :class:`repro_torch.sweeps.SweepReducer` — the two are equal by
+    construction; use the reducer directly when rows arrive
+    incrementally (campaigns, shard workers).
+    """
+    return SweepReducer().update_many(rows).result()

@@ -232,6 +232,30 @@ def test_run_on_cuda_matches_scalar_structure(cuda):
         assert soa.structural_invariants(ref) == soa.structural_invariants(r)
 
 
+def test_soa_sweep_on_cuda_matches_lockstep(cuda):
+    """An SoA sweep on the card runs the fused allocator (counted in
+    this process: jobs=1) and agrees with the lockstep sweep of the same
+    cells on every structural fact; the rows name the same cells."""
+    kw = dict(policies=("ads_tile", "tp_driven"), duration_s=0.7, jobs=1)
+    reports, rows = {}, {}
+    orig = runner.summarize
+    for backend in ("soa", "lockstep"):
+        out = reports[backend] = []
+        runner.summarize = lambda spec, report, out=out: out.append(report) or orig(spec, report)
+        try:
+            before = K.edf_alloc_ladder.launches, K.ladder_grant.launches
+            rows[backend] = runner.sweep(2, backend=backend, **kw)
+            after = K.edf_alloc_ladder.launches, K.ladder_grant.launches
+        finally:
+            runner.summarize = orig
+        assert after[1] == before[1]
+        assert (after[0] > before[0]) == (backend == "soa")
+    ident = {b: [(r["script"], r["policy"], r["seed"]) for r in rows[b]] for b in rows}
+    assert ident["soa"] == ident["lockstep"] and len(ident["soa"]) == 4
+    for a, b in zip(reports["lockstep"], reports["soa"]):
+        assert soa.structural_invariants(a) == soa.structural_invariants(b)
+
+
 #: kernel vs plain version: tests/test_kernels.py's tolerances
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 

@@ -15,8 +15,10 @@ from repro.scenarios.script import get_scenario as get_scenario_ref
 from repro_torch.core import latency_model as LM_t
 from repro_torch.core.gha.schedule import Schedule as Schedule_t
 from repro_torch.core.sim import soa as soa_t
+from repro_torch.core.sim.soa_kernels import POLICY_IDS
 from repro_torch.core.sim.batch import report_digest as digest_t
 from repro_torch.scenarios import runner as runner_t
+from repro_torch.scenarios.script import BUNDLED_SCENARIOS
 from repro_torch.scenarios.script import get_scenario as get_scenario_t
 
 
@@ -27,9 +29,14 @@ torch.set_num_threads(1)
 POLICIES = ["cyc", "tp_driven", "ads_tile"]
 
 
-def _specs(policy, **kw):
-    a = runner_ref.ScenarioSpec(scenario=get_scenario_ref("commute"), policy=policy, **kw)
-    b = runner_t.ScenarioSpec(scenario=get_scenario_t("commute"), policy=policy, **kw)
+#: every bundled scenario x every policy the engines know
+SCENARIOS = sorted(BUNDLED_SCENARIOS)
+ALL_POLICIES = sorted(POLICY_IDS, key=POLICY_IDS.get)
+
+
+def _specs(policy, scenario="commute", **kw):
+    a = runner_ref.ScenarioSpec(scenario=get_scenario_ref(scenario), policy=policy, **kw)
+    b = runner_t.ScenarioSpec(scenario=get_scenario_t(scenario), policy=policy, **kw)
     return a, b
 
 
@@ -79,9 +86,10 @@ def test_build_problem_arrays_equal(policy):
             assert va == vb, f.name
 
 
-@pytest.mark.parametrize("policy", POLICIES)
-def test_scalar_report_digest_equal(policy):
-    a, b = _specs(policy, seed=0)
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+@pytest.mark.parametrize("scenario", SCENARIOS)
+def test_scalar_report_digest_equal(scenario, policy):
+    a, b = _specs(policy, scenario, seed=0)
     [ra] = runner_ref.run(a, backend="scalar")
     [rb] = runner_t.run(b, backend="scalar", device="cpu")
     assert digest_ref(ra) == digest_t(rb)
