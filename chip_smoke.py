@@ -26,6 +26,10 @@ Phases, each printing one JSON line:
    prefill ``(1, 16, 4096)`` and decode ``(4, 1, 4096)``, and the chunked
    design's edges (L = 2047, 2049; W = 100); flash attention at
    D = 256 on 128-slot rings (part-filled and wrapped ``kv_positions``);
+   the forward's log-sum-exp (split plans included) and attention's
+   backward (``flash_attention_bwd``) at phi4-mini's train shape, a
+   2048-token one and the forward's prefill and sweep cases, in bf16 and
+   f32 (``TOL_BWD``);
 4. ``sampler`` — the torch trace sampler on the card against the NumPy
    host path (R=1024, ``rtol=1e-12``);
 5. ``main``    — ``run(commute, ads_tile, cockpit_replicas=4, seeds=range
@@ -71,19 +75,29 @@ Phases, each printing one JSON line:
    recurrentgemma-9b one long request on the same weights (``serve_long``:
    prompt 1024 / 2032, launches asserted, first-token latency, a profiled
    prefill's device ms and the SSD / RG-LRU kernel's share of it);
-12. ``timing`` — kernel, plain-version, library and bound times at each
+12. ``train``   — ``Trainer`` on phi4-mini at full width in bf16 (seed 0,
+   batch 8 x seq 128, 4 steps), every launch counter set to 0 just before
+   and read just after (the forward kernel twice per layer a step under
+   remat, the backward once), every parameter leaf's gradient finite and
+   nonzero at step 1, step wall ms, tokens/s, peak memory and one profiled
+   step (device busy ms, idle share, the attention kernels' device ms);
+   one step's loss and gradients on the card against the CPU at full
+   width, depth 2, in float32 (``TRAIN_XCHECK``); a checkpoint save and
+   resume at depth 2 in bf16 that gives the uninterrupted run's next
+   loss;
+13. ``timing`` — kernel, plain-version, library and bound times at each
    path's shapes, then the ``kernels`` line; ``moe_gmm`` is also held on
    granite-moe's own expert weights against the float32 references and a
    float64 oracle (``TOL_MOE_MODEL``), and with ``--moe-baseline
    OTHER/moe_gmm.cu`` another build of it is timed beside this one;
-13. ``flash_ab`` (only with ``--flash-baseline OTHER/src``) — flash
+14. ``flash_ab`` (only with ``--flash-baseline OTHER/src``) — flash
    attention's per-call and device time at the serve shapes from another
    tree and from this one, each in a fresh process;
-14. ``soa_ab`` (only with ``--soa-baseline OTHER/src``) — the SoA main path
+15. ``soa_ab`` (only with ``--soa-baseline OTHER/src``) — the SoA main path
    (ads_tile and tp_driven, cold and warm) and its 100-round profile from
    another tree and from this one, each in a fresh process, in the order
    baseline, this, this, baseline;
-15. ``ssm_ab`` (only with ``--ssm-baseline OTHER/src``) — ``ssd_intra_chunk``
+16. ``ssm_ab`` (only with ``--ssm-baseline OTHER/src``) — ``ssd_intra_chunk``
    and ``rglru_scan`` per-call and device ms at their long and serve shapes
    (``SSM_AB_CASES``) from another tree and from this one, each in a fresh
    process, in the same order.
@@ -118,6 +132,9 @@ from repro_torch.models import LM, init_params  # noqa: E402
 from repro_torch.models.lm import _hybrid_layout as hybrid_layout  # noqa: E402
 from repro_torch.models.mamba2 import ssd_chunked as ssd_chunked_plain  # noqa: E402
 from repro_torch.serving import EngineConfig, Request, ServingEngine  # noqa: E402
+from repro_torch.models.lm import train_step_fn  # noqa: E402
+from repro_torch.training import TrainConfig, Trainer  # noqa: E402
+from repro_torch.training.data import DataConfig, synthetic_stream  # noqa: E402
 from repro_torch.core.sim import soa  # noqa: E402
 from repro_torch.core.sim import soa_kernels as K  # noqa: E402
 from repro_torch.core.sim.batch import report_digest, sample_trace_batch  # noqa: E402
@@ -135,8 +152,9 @@ F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 
 PHASES = ("device", "build", "kernel", "sampler", "main", "loop", "equiv",
-          "lockstep", "sweep", "profile", "serve", "timing")
-KERNELS = ("ladder_grant", "flash_attention", "moe_gmm", "ssd_intra_chunk", "rglru_scan")
+          "lockstep", "sweep", "profile", "serve", "train", "timing")
+KERNELS = ("ladder_grant", "flash_attention", "flash_attention_bwd", "moe_gmm",
+           "ssd_intra_chunk", "rglru_scan")
 MAIN_R = 1024
 KS_TOL = 0.08
 T_START = time.perf_counter()
@@ -288,7 +306,7 @@ def phase_build():
          ptxas={k: [ln.split("ptxas info    : ")[-1] for ln in v.splitlines()
                     if any(w in ln for w in keep)]
                 for k, v in _cuda.BUILD_LOG.items()})
-    for name in ("flash_attention", "moe_gmm", "ssd_intra_chunk"):
+    for name in ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_intra_chunk"):
         counts = sass_counts(libs[name])
         emit("sass", kernel=name, functions=counts)
         mma = [f for f in counts if "mma_kernel" in f]
@@ -352,6 +370,30 @@ FLASH_CASES = (
     + [(f"sweep_{b}x{hq}x{hkv}x{l}x{d}_w{w}_c{int(c)}", b, hq, hkv, l, l, d, 0, l, w, c)
        for (b, hq, hkv, l, d) in [(1, 4, 4, 128, 64), (2, 8, 2, 96, 32), (1, 4, 1, 256, 128)]
        for (w, c) in [(0, 0.0), (32, 0.0), (0, 50.0)]]
+)
+
+#: attention's backward, kernel vs plain version on the same q, k, v, out,
+#: lse and dout: float32 sums of up to 3 x 2048 products in another order
+#: (the bf16 band is TOL's: each gradient is rounded to bf16 once on both
+#: sides)
+TOL_BWD = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: TOL[torch.bfloat16]}
+#: the backward kernel against SDPA's backward (the timing yardstick, same
+#: function): SDPA's bf16 backward rounds p and ds to bf16 before its
+#: products, where the kernel keeps them float32, so the two differ by a
+#: few bf16 roundings of each term, not one rounding of each output
+TOL_BWD_LIB = {torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+#: the forward's log-sum-exp against the plain version's: float32 on both
+#: sides from the same float32 logits, summed in another order
+TOL_LSE = {torch.float32: dict(rtol=1e-5, atol=1e-4), torch.bfloat16: dict(rtol=1e-5, atol=1e-4)}
+#: (name, B, Hq, Hkv, Lq, Lk, D, q_offset, kv_valid_len, window, softcap):
+#: phi4-mini's train shape (batch 8, 24 query heads on 8 KV heads of 128,
+#: 128 tokens), a 2048-token sequence at its width, and the forward's
+#: prefill and sweep cases with more than one query row (windows, softcap,
+#: offsets, D = 32..256, G = 1..16)
+BWD_CASES = (
+    [("phi4_train", 8, 24, 8, 128, 128, 128, 0, 128, 0, 0.0),
+     ("phi4_L2048", 1, 24, 8, 2048, 2048, 128, 0, 2048, 0, 0.0)]
+    + [c for c in FLASH_CASES if c[4] > 1]
 )
 
 #: (name, E, C, D, F, weight scale): the serve path (granite-moe-1b:
@@ -540,6 +582,7 @@ def phase_kernel(errs):
             res[f"{name}/{str(dtype)[6:]}"] = err
     emit("kernel", name="flash_attention", cases=len(res), tol={str(k)[6:]: v for k, v in TOL.items()},
          max_abs_err=max(errs["flash_attention"]), max_abs_err_by_case=res)
+    _bwd_kernel_checks(errs)
 
     res = {}
     for i, (name, E, C, D, Fd, scale) in enumerate(MOE_CASES):
@@ -599,6 +642,52 @@ def phase_kernel(errs):
             res[f"{name}/{str(dtype)[6:]}"] = err
     emit("kernel", name="rglru_scan", cases=len(res), tol={str(k)[6:]: v for k, v in TOL.items()},
          max_abs_err=max(errs["rglru_scan"]), max_abs_err_by_case=res)
+
+
+def _bwd_kernel_checks(errs):
+    """The forward's log-sum-exp on every plan (split-KV decodes included)
+    and the backward kernel against their plain versions."""
+    res, splits = {}, 0
+    for i, (name, B, Hq, Hkv, Lq, Lk, D, qo, kvl, w, c) in enumerate(FLASH_CASES):
+        for dtype in DTYPES:
+            q, k, v = flash_inputs(B, Hq, Hkv, Lq, Lk, D, dtype, seed=100 + 10 * i)
+            kw = dict(causal=True, window=w, softcap=c, q_offset=qo, kv_valid_len=kvl)
+            out, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+            pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+            _held(out, pout, dtype, f"flash_attention {name} {dtype} with lse")
+            res[f"{name}/{str(dtype)[6:]}"] = _held(lse, plse, dtype, f"lse {name} {dtype}",
+                                                    TOL_LSE)
+            splits = max(splits, FA.flash_plan(dtype, B, Hq, Hkv, Lq, Lk, D,
+                                               n_sm=FA._sm_count(0), window=w, q_offset=qo,
+                                               kv_valid_len=kvl).splits)
+    check(splits > 1, "no lse case ran a split plan")
+    emit("kernel", name="flash_attention_lse", cases=len(res), most_splits=splits,
+         tol={str(k)[6:]: v for k, v in TOL_LSE.items()}, max_abs_err=max(res.values()),
+         max_abs_err_by_case=res)
+
+    res, paths = {}, {}
+    for i, (name, B, Hq, Hkv, Lq, Lk, D, qo, kvl, w, c) in enumerate(BWD_CASES):
+        for dtype in DTYPES:
+            q, k, v = flash_inputs(B, Hq, Hkv, Lq, Lk, D, dtype, seed=800 + 10 * i)
+            kw = dict(causal=True, window=w, softcap=c, q_offset=qo, kv_valid_len=kvl)
+            out, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+            dout = _randn(out.shape, dtype, seed=805 + 10 * i)
+            before = FA.flash_attention_bwd.launches
+            got = FA.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            check(FA.flash_attention_bwd.launches == before + 1, f"flash bwd {name}: no launch")
+            want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+            err = 0.0
+            for g, wnt, part in zip(got, want, ("dq", "dk", "dv")):
+                check(g.dtype == dtype and g.shape == wnt.shape, f"flash bwd {name} {part}")
+                err = max(err, _held(g, wnt, dtype, f"flash_attention_bwd {name} {dtype} {part}",
+                                     TOL_BWD))
+            errs["flash_attention_bwd"].append(err)
+            res[f"{name}/{str(dtype)[6:]}"] = err
+            paths[FA.bwd_path(dtype, D)] = paths.get(FA.bwd_path(dtype, D), 0) + 1
+    check(set(paths) == {"mma", "fma"}, f"flash bwd: both designs must be checked, got {paths}")
+    emit("kernel", name="flash_attention_bwd", cases=len(res), cases_by_path=paths,
+         tol={str(k)[6:]: v for k, v in TOL_BWD.items()},
+         max_abs_err=max(errs["flash_attention_bwd"]), max_abs_err_by_case=res)
 
 
 def phase_sampler():
@@ -1126,6 +1215,7 @@ def _leaves(tree):
 #: the launch-counted wrapper of each kernel
 COUNTED = {"ladder_grant": K.ladder_grant, "alloc_ladder": K.edf_alloc_ladder,
            "flash_attention": FA.flash_attention,
+           "flash_attention_bwd": FA.flash_attention_bwd,
            "moe_gmm": MG.moe_gmm, "ssd_intra_chunk": SSD.ssd_intra_chunk,
            "rglru_scan": RG.rglru_scan}
 
@@ -1466,6 +1556,218 @@ def phase_serve(arch):
                 moe=params["layers"]["moe"] if cfg.num_experts else None)
 
 
+#: the train phase: launch/train.py's default arch and traffic (batch 8,
+#: seq 128) at full width in bf16, random weights from seed 0
+TRAIN = dict(arch="phi4_mini_3p8b", batch=8, seq_len=128, steps=4, seed=0)
+#: card vs CPU, one step's loss and gradients at full width, cut to 2
+#: layers and a batch of 2 x 32 tokens (the CPU's float32 copy of a
+#: 2-layer phi4-mini is 3.3 GB), float32 on both sides (the card's float32
+#: matmuls in full float32, no TF32): the loss to rtol 1e-5, each gradient
+#: leaf to 1e-4 of its largest entry (sums of up to 8192 products in
+#: another order, through two layers and a 200 064-way softmax)
+TRAIN_XCHECK = dict(layers=2, batch=2, seq_len=32, loss_rtol=1e-5, grad_rtol=1e-4)
+#: the save-and-resume check: 2 layers at full width in bf16, batch 2 x 32
+TRAIN_RESUME = dict(layers=2, batch=2, seq_len=32, loss_rtol=1e-5)
+#: the attention kernels' device kernel names: forward (and its split
+#: merge) and backward
+TRAIN_KERNELS = {"flash_attention": ("flash_fwd_", "flash_merge_"),
+                 "flash_attention_bwd": ("flash_bwd_",)}
+
+
+#: device kernels by class, for the train step's breakdown (first match)
+DEVICE_CLASSES = (("flash_attention", ("flash_fwd_", "flash_merge_")),
+                  ("flash_attention_bwd", ("flash_bwd_",)),
+                  ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")),
+                  ("reduce", ("reduce_kernel",)),
+                  ("index", ("index", "scatter", "gather")),
+                  ("elementwise", ("elementwise_kernel",)))
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _grad_probe(params):
+    """Hooks that record, for each parameter leaf, whether its gradient is
+    finite and nonzero when autograd accumulates it; returns the record
+    and the hooks' remover."""
+    seen = {}
+
+    def hook(name):
+        def fn(p):
+            g = p.grad
+            seen[name] = (torch.isfinite(g).all(), (g != 0).any(), g.float().abs().max())
+        return fn
+
+    handles = [p.register_post_accumulate_grad_hook(hook(n)) for n, p in _named_leaves(params)]
+    return seen, lambda: [h.remove() for h in handles]
+
+
+def _train_xcheck(cfg):
+    """One step's loss and gradients on the card and on the CPU, float32."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "float32 matmuls must not use TF32")
+    x = TRAIN_XCHECK
+    cut = dataclasses.replace(cfg, num_layers=x["layers"], dtype="float32")
+    params = init_params(cut, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(TRAIN["seed"]))
+    batch = next(synthetic_stream(cut, DataConfig(batch=x["batch"], seq_len=x["seq_len"]),
+                                  device="cpu"))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = _map(params, lambda a, dev=dev: a.detach().to(dev).requires_grad_(True))
+        t = time.perf_counter()
+        loss = train_step_fn(cut)(p, {k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        out[dev] = (loss.item(), {n: leaf.grad.cpu() for n, leaf in _named_leaves(p)},
+                    time.perf_counter() - t)
+        del p
+    del params
+    (l_gpu, g_gpu, s_gpu), (l_cpu, g_cpu, s_cpu) = out["cuda"], out["cpu"]
+    rel = {n: float((g_gpu[n] - g_cpu[n]).abs().max() / g_cpu[n].abs().max().clamp(min=1e-30))
+           for n in g_cpu}
+    res = dict(layers=cut.num_layers, dtype="float32", batch=[x["batch"], x["seq_len"]],
+               loss_card=l_gpu, loss_cpu=l_cpu, loss_rel_err=abs(l_gpu - l_cpu) / abs(l_cpu),
+               grad_rel_err_max=max(rel.values()), grad_rel_err=rel, card_s=s_gpu, cpu_s=s_cpu,
+               tol={"loss_rtol": x["loss_rtol"], "grad_rtol": x["grad_rtol"]})
+    emit("train_xcheck", **res)
+    check(abs(l_gpu - l_cpu) <= x["loss_rtol"] * abs(l_cpu),
+          f"train xcheck: loss card {l_gpu} vs CPU {l_cpu}")
+    check(max(rel.values()) <= x["grad_rtol"],
+          f"train xcheck: gradients differ by {max(rel.values())} of their largest entry")
+    return res
+
+
+def _train_resume(cfg):
+    """Save at step 1 and resume: the resumed step 2 gives the
+    uninterrupted run's loss (depth 2, bf16, full width)."""
+    import shutil
+
+    r = TRAIN_RESUME
+    cut = dataclasses.replace(cfg, num_layers=r["layers"])
+    dcfg = DataConfig(batch=r["batch"], seq_len=r["seq_len"])
+
+    def run(steps, ckpt_dir=None, every=1000, resume=False):
+        t = Trainer(cut, TrainConfig(steps=steps, log_every=1, checkpoint_every=every,
+                                     checkpoint_dir=ckpt_dir), seed=TRAIN["seed"], device="cuda")
+        if resume:
+            check(t.restore_if_available() and t.step == 1, "train resume: no checkpoint")
+        hist = t.fit(synthetic_stream(cut, dcfg, start_step=t.step, device="cuda"))["history"]
+        del t
+        torch.cuda.empty_cache()
+        return {h["step"]: h["loss"] for h in hist}
+
+    with tempfile.TemporaryDirectory() as d:
+        full = run(2)
+        t0 = time.perf_counter()
+        run(1, d, every=1)                        # "crash" after step 1
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        free = shutil.disk_usage(d).free
+        t0 = time.perf_counter()
+        resumed = run(2, d, resume=True)
+        resume_s = time.perf_counter() - t0
+    res = dict(layers=cut.num_layers, dtype=cut.dtype, loss_full=full, loss_resumed=resumed,
+               checkpoint_bytes=nbytes, disk_free_bytes=free, crash_run_s=save_s,
+               resume_run_s=resume_s, loss_rtol=r["loss_rtol"])
+    emit("train_resume", **res)
+    check(abs(resumed[2] - full[2]) <= r["loss_rtol"] * abs(full[2]),
+          f"train resume: step 2 loss {resumed[2]} against {full[2]}")
+
+
+def phase_train():
+    """``Trainer`` on phi4-mini at full width: launches, gradients, speed,
+    memory, a profiled step; then the float32 card-vs-CPU step and the
+    checkpoint resume at depth 2."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config(TRAIN["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    trainer = Trainer(cfg, TrainConfig(steps=1, log_every=1), seed=TRAIN["seed"], device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for _, p in _named_leaves(trainer.params))
+    data = synthetic_stream(cfg, DataConfig(batch=TRAIN["batch"], seq_len=TRAIN["seq_len"]),
+                            device="cuda")
+    seen, unhook = _grad_probe(trainer.params)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = trainer.fit(data)["history"]
+    unhook()
+    names = [n for n, _ in _named_leaves(trainer.params)]
+    check(set(seen) == set(names), f"train: leaves without a gradient: {set(names) - set(seen)}")
+    bad = [n for n in names if not (bool(seen[n][0]) and bool(seen[n][1]))]
+    check(not bad, f"train: gradients not finite or all zero at step 1: {bad}")
+    grad_absmax = {n: float(seen[n][2]) for n in names}
+    trainer.tcfg.steps = TRAIN["steps"]
+    hist += trainer.fit(data)["history"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    L, steps = cfg.num_layers, TRAIN["steps"]
+    want = dict.fromkeys(COUNTED, 0)
+    want["flash_attention"] = L * steps * (2 if cfg.remat else 1)
+    want["flash_attention_bwd"] = L * steps
+    check(launches == want, f"train: launches {launches}, want {want}")
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == steps and all(np.isfinite(losses)) and all(np.isfinite(
+          [h["grad_norm"] for h in hist])), f"train: history {hist}")
+    check(abs(losses[0] - np.log(cfg.vocab_size)) < 0.5 * np.log(cfg.vocab_size),
+          f"train: first loss {losses[0]} far from log(V) = {np.log(cfg.vocab_size)}")
+    step_ms = [1e3 * h["dt_s"] for h in hist]
+    steady = float(np.mean(step_ms[1:]))
+    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    peak = torch.cuda.max_memory_allocated()
+
+    # one more step, timed plain and then under the profiler
+    trainer.tcfg.steps += 1
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer.fit(data)
+    torch.cuda.synchronize()
+    plain_us = 1e6 * (time.perf_counter() - t)
+    trainer.tcfg.steps += 1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.fit(data)
+        torch.cuda.synchronize()
+        prof_us = 1e6 * (time.perf_counter() - t)
+    n_kern, busy, by_name = _device_kernels(prof)
+    kern_ms = {k: sum(v[1] for n, v in by_name.items() if any(tag in n for tag in tags)) / 1e3
+               for k, tags in TRAIN_KERNELS.items()}
+    by_class = {}
+    for n, (cnt, us) in by_name.items():
+        c = next((c for c, tags in DEVICE_CLASSES if any(t in n for t in tags)), "other")
+        k_, t_ = by_class.get(c, (0, 0.0))
+        by_class[c] = (k_ + cnt, t_ + us)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    res = dict(arch=cfg.name, dtype=cfg.dtype, layers=L, params=int(n_params),
+               batch=TRAIN["batch"], seq_len=TRAIN["seq_len"], steps=steps, remat=cfg.remat,
+               init_s=init_s, wall_s=wall, losses=losses,
+               grad_norms=[h["grad_norm"] for h in hist], step_ms=step_ms,
+               step_ms_steady=steady, tokens_per_s=tokens / (steady / 1e3),
+               peak_mem_gb=peak / 1e9, launches=launches,
+               grad_absmax_min=min(grad_absmax.values()),
+               profiled_step_wall_ms=prof_us / 1e3, plain_step_wall_ms=plain_us / 1e3,
+               device_kernels=n_kern, device_busy_ms=busy / 1e3,
+               device_idle_share=1.0 - busy / plain_us if n_kern else None,
+               kernel_device_ms=kern_ms,
+               device_ms_by_class={c: [v[0], round(v[1] / 1e3, 4)] for c, v in by_class.items()},
+               top_device_ms={k[:160]: [v[0], round(v[1] / 1e3, 4)] for k, v in top})
+    emit("train", **res)
+    del trainer, data
+    torch.cuda.empty_cache()
+    res["xcheck"] = _train_xcheck(cfg)
+    torch.cuda.empty_cache()
+    _train_resume(cfg)
+    return res
+
+
 def _bound(nbytes, nops, ops_per_s):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1692,6 +1994,65 @@ def _flash_timing(launches, errs):
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
             **{k: v for k, v in out.items() if k != "serve_decode"}}
+
+
+def _flash_bwd_timing(launches, errs):
+    """The backward at phi4-mini's train shape (the kernels-line row) and at
+    2048 tokens: ms per call, device ms, plain version, bound, and SDPA's
+    backward (``scaled_dot_product_attention`` under autograd, causal,
+    GQA) at the same shape."""
+    import torch.nn.functional as F
+
+    out = {}
+    for name, B, Hq, Hkv, Lq, Lk, D, *_ in BWD_CASES[:2]:
+        dt = torch.bfloat16
+        q, k, v = flash_inputs(B, Hq, Hkv, Lq, Lk, D, dt, seed=950)
+        o, lse = FA.flash_attention(q, k, v, return_lse=True)
+        dout = _randn(o.shape, dt, seed=951)
+        got = FA.flash_attention_bwd(q, k, v, o, lse, dout)
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, dout)
+        errs["flash_attention_bwd"].append(max(
+            _held(g, w, dt, f"flash_attention_bwd timing {name}", TOL_BWD)
+            for g, w in zip(got, want)))
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+        lib = torch.autograd.grad(lo, (ql, kl, vl), dout, retain_graph=True)
+        for g, w in zip(got, lib):
+            _held(g, w, dt, f"flash_attention_bwd {name} vs SDPA's backward", TOL_BWD_LIB)
+
+        def call():
+            return FA.flash_attention_bwd(q, k, v, o, lse, dout)
+
+        def lib_call():
+            return torch.autograd.grad(lo, (ql, kl, vl), dout, retain_graph=True)
+
+        long = Lq * Lk > 1 << 20
+        n_it = 20 if long else 100
+        ms = cuda_ms(call, iters=n_it, warmup=3)
+        plain_ms = cuda_ms(lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, dout),
+                           iters=5 if long else 20, warmup=2)
+        lib_ms = cuda_ms(lib_call, iters=n_it, warmup=3)
+        ms2 = cuda_ms(call, iters=n_it, warmup=3)
+        dev = device_ms(call, iters=5 if long else 20)
+        lib_dev = device_ms(lib_call, iters=5 if long else 20)
+        pairs = B * Hq * Lq * (Lq + 1) // 2            # causal, Lq == Lk
+        # q, out, dout in and dq out; k, v in and dk, dv out; lse in
+        nbytes = 2 * (4 * B * Hq * Lq * D + 4 * B * Hkv * Lk * D) + 4 * B * Hq * Lq
+        nops = 10 * pairs * D        # q.k, dout.v, p^T dout, ds^T q, ds k
+        bound_ms, by = _bound(nbytes, nops, BF16_OPS_PER_S)
+        out[name] = dict(ms=min(ms, ms2), ms_runs=[ms, ms2], device_ms=dev, plain_ms=plain_ms,
+                         library_ms=lib_ms, library_device_ms=lib_dev, bound_ms=bound_ms,
+                         bound_by=by, bytes=nbytes, ops=nops)
+        emit("timing", name="flash_attention_bwd", case=name, dtype="bfloat16",
+             q=[B, Hq, Lq, D], kv=[B, Hkv, Lk, D], **out[name])
+    d = out["phi4_train"]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/common.py:231",
+            "launches": int(launches), "max_abs_err": max(errs["flash_attention_bwd"]),
+            "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+            "phi4_L2048": out["phi4_L2048"]}
 
 
 #: the kernel against the float32 references on granite-moe's own expert
@@ -2144,7 +2505,7 @@ def phase_soa_ab(baseline_src):
                        for p in ("ads_tile", "tp_driven")})
 
 
-def phase_timing(problem, soa_launches, serve, errs, moe_baseline=None):
+def phase_timing(problem, soa_launches, serve, errs, moe_baseline=None, train=None):
     kernels = []
     if problem is not None:
         kernels.append(_ladder_timing(problem, soa_launches["ladder_grant"], errs))
@@ -2163,6 +2524,11 @@ def phase_timing(problem, soa_launches, serve, errs, moe_baseline=None):
         for row in rows:
             row["launches_by_arch"] = {a: n[row["name"]] for a, n in by_arch.items()}
         kernels += rows
+    if train:
+        for row in kernels:
+            if row["name"] == "flash_attention":
+                row["launches_train"] = train["launches"]["flash_attention"]
+        kernels.append(_flash_bwd_timing(train["launches"]["flash_attention_bwd"], errs))
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
@@ -2214,8 +2580,12 @@ def main():
         for arch in SERVE_ARCHS:
             serve[arch] = phase_serve(arch)
             torch.cuda.empty_cache()
+    train = None
+    if "train" in only:
+        train = phase_train()
+        torch.cuda.empty_cache()
     if "timing" in only:
-        phase_timing(problem, launches, serve, errs, args.moe_baseline)
+        phase_timing(problem, launches, serve, errs, args.moe_baseline, train)
     if args.flash_baseline:
         phase_flash_ab(args.flash_baseline)
     if args.soa_baseline:

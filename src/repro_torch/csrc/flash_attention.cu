@@ -76,6 +76,11 @@
 // reference then averages the masked values.  The model never asks for
 // such a row.
 //
+// With a non-null `lse` each row's log-sum-exp m + log(max(l, 1e-30)) is
+// written as float32 (B, Hq, Lq): by the block itself with one split, by
+// the merge kernel from the merged (M, L) with several.  The backward
+// (flash_attention_bwd.cu) recomputes the probabilities from it.
+//
 // The kernels launch on the caller's stream, do not synchronise and
 // allocate nothing; the caller owns `out` and the scratch.
 
@@ -113,6 +118,7 @@ struct Problem {
   float* part_o;            // [splits][B*Hkv][rows][D] (splits > 1)
   float* part_m;            // [splits][B*Hkv][rows]
   float* part_l;
+  float* lse;               // null, or (B, Hq, Lq) float32 log-sum-exp
 };
 
 // The key range [begin, end) that the block of rows [row0, row0 + nrows)
@@ -188,9 +194,25 @@ struct RowOut {
   }
 };
 
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m + logf(fmaxf(l, 1e-30f));
+}
+
+// One split: the row's log-sum-exp (when asked for); several: the row's
+// partial (m, l) for the merge.
 __device__ __forceinline__ void store_ml(const Problem& p, int bh, int rr, int split,
                                          float m, float l) {
-  if (p.splits == 1) return;
+  if (p.splits == 1) {
+    if (p.lse != nullptr) {
+      const int g = p.Hq / p.Hkv;
+      const int b = bh / p.Hkv;
+      const int hk = bh - b * p.Hkv;
+      const int hg = rr / p.Lq;
+      const int qi = rr - hg * p.Lq;
+      p.lse[(static_cast<long long>(b) * p.Hq + hk * g + hg) * p.Lq + qi] = row_lse(m, l);
+    }
+    return;
+  }
   const int rows = (p.Hq / p.Hkv) * p.Lq;
   const long long r = (static_cast<long long>(split) * gridDim.y + bh) * rows + rr;
   const bool none = no_key(m);
@@ -663,7 +685,7 @@ template <typename T>
 __global__ void __launch_bounds__(kMergeThreads)
 flash_merge_kernel(T* __restrict__ out, const float* __restrict__ po,
                    const float* __restrict__ pm, const float* __restrict__ pl,
-                   int splits, int Hq, int Hkv, int Lq, int D) {
+                   float* __restrict__ lse, int splits, int Hq, int Hkv, int Lq, int D) {
   __shared__ float w[kMaxSplits];
   __shared__ float tot[2];  // M, L
   const int rr = blockIdx.x;
@@ -689,7 +711,9 @@ flash_merge_kernel(T* __restrict__ out, const float* __restrict__ po,
   const int hk = bh - b * Hkv;
   const int hg = rr / Lq;
   const int qi = rr - hg * Lq;
-  T* o = out + ((static_cast<long long>(b) * Hq + hk * g + hg) * Lq + qi) * D;
+  const long long row = (static_cast<long long>(b) * Hq + hk * g + hg) * Lq + qi;
+  if (lse != nullptr && threadIdx.x == 0) lse[row] = row_lse(tot[0], tot[1]);
+  T* o = out + row * D;
   for (int d = threadIdx.x; d < D; d += kMergeThreads) {
     float acc = 0.f;
     for (int s = 0; s < splits; ++s)
@@ -753,7 +777,8 @@ int launch_merge(void* out, const Problem& p, int B, cudaStream_t stream) {
   const int rows = (p.Hq / p.Hkv) * p.Lq;
   const dim3 grid(rows, B * p.Hkv);
   flash_merge_kernel<T><<<grid, kMergeThreads, 0, stream>>>(
-      static_cast<T*>(out), p.part_o, p.part_m, p.part_l, p.splits, p.Hq, p.Hkv, p.Lq, p.D);
+      static_cast<T*>(out), p.part_o, p.part_m, p.part_l, p.lse, p.splits, p.Hq, p.Hkv, p.Lq,
+      p.D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -787,7 +812,8 @@ bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15)
 // tile.  splits > 1: key range s covers [key_base + s * keys_per_split,
 // + keys_per_split) (multiples of block_keys); part_o (splits, B * Hkv, Hq / Hkv
 // * Lq, D), part_m and part_l (splits, B * Hkv, Hq / Hkv * Lq), float32, are
-// scratch, and a second kernel merges them into out.  Returns
+// scratch, and a second kernel merges them into out.  lse: null, or (B, Hq,
+// Lq) float32 that receives each row's log-sum-exp.  Returns
 // cudaGetLastError() after the launches (or the error that refused one).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* kv_positions, void* out, void* part_o,
@@ -796,7 +822,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int kv_valid_len, int causal, int window, float softcap,
                                float scale, int dtype, int path, int block_rows,
                                int block_keys, int key_base, int keys_per_split,
-                               int splits, void* stream) {
+                               int splits, void* lse, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Lq <= 0 || Lk <= 0 ||
       D <= 0 || D > kMaxD || kv_valid_len <= 0 || static_cast<long long>(B) * Hkv > 65535 ||
       splits < 1 || splits > kMaxSplits || key_base < 0 || keys_per_split <= 0 ||
@@ -828,6 +854,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   p.part_o = static_cast<float*>(part_o);
   p.part_m = static_cast<float*>(part_m);
   p.part_l = static_cast<float*>(part_l);
+  p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e;
   if (path == 1) {

@@ -8,7 +8,8 @@ models call and ``ref.py`` holds the plain oracles.
 Kernels:
 * ``flash_attention`` — GQA flash attention (causal, sliding window,
   logit softcap, query/key offsets, a ragged valid key count and ring
-  caches' key positions; head dim up to 256).
+  caches' key positions; head dim up to 256), with its backward
+  (``flash_attention_bwd``, ``FlashAttentionFn``) for training.
 * ``moe_gmm`` — the MoE expert FFN over capacity buckets, gate-up-down
   fused so the hidden block stays on chip.
 * ``ssd`` — Mamba-2's SSD intra-chunk part (``ops.ssd_chunked`` adds

@@ -23,20 +23,30 @@ are cut into ranges, one block per range writes a float32 partial
 ``(o, m, l)`` to scratch allocated here, and a second kernel merges the
 ranges in order.  :func:`flash_partial_plain` and
 :func:`flash_merge_plain` are that algebra in plain torch.
+
+With ``return_lse`` the forward also returns each row's log-sum-exp
+``m + log(max(l, 1e-30))`` (B, Hq, Lq) float32, on every plan (a split
+plan's from the merge).  :class:`FlashAttentionFn` is attention's
+gradient: its forward saves q, k, v, out and lse, and its backward,
+:func:`flash_attention_bwd`, launches ``csrc/flash_attention_bwd.cu``
+for tensors on the card and runs :func:`flash_attention_bwd_plain` (the
+reference's ``_flash_bwd``, step for step) for tensors on the CPU.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from .. import _cuda
-from ..models.common import NEG_INF, _apply_softcap, chunked_attention
+from ..models.common import _IMAX, NEG_INF, _apply_softcap, _mask_for, chunked_attention
 
-__all__ = ["FlashPlan", "flash_attention", "flash_attention_plain", "flash_merge_plain",
+__all__ = ["FlashAttentionFn", "FlashPlan", "bwd_path", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain", "flash_merge_plain",
            "flash_partial_plain", "flash_plan", "split_ranges"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -51,6 +61,15 @@ _SIG = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]),
+}
+_BWD_SIG = {
+    "flash_attention_bwd": (ctypes.c_int, [
+        *[ctypes.c_void_p] * 10,
+        *[ctypes.c_int] * 11,
+        ctypes.c_float, ctypes.c_float,
         ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]),
@@ -144,12 +163,13 @@ def _sm_count(idx: int) -> int:
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
                           scale: Optional[float] = None, q_offset=0,
-                          kv_offset=0, kv_valid_len=None, kv_positions=None):
+                          kv_offset=0, kv_valid_len=None, kv_positions=None,
+                          return_lse=False):
     """The plain version: blockwise online softmax in torch."""
     return chunked_attention(
         q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
         q_offset=q_offset, kv_offset=kv_offset, kv_valid_len=kv_valid_len,
-        kv_positions=kv_positions,
+        kv_positions=kv_positions, return_lse=return_lse,
     )
 
 
@@ -197,21 +217,25 @@ def flash_partial_plain(q, k, v, key_lo, key_hi, *, causal=True, window=0,
     return o.reshape(b, hq, lq, d), m.reshape(b, hq, lq), l.reshape(b, hq, lq)
 
 
-def flash_merge_plain(o, m, l, dtype):
+def flash_merge_plain(o, m, l, dtype, return_lse=False):
     """Merge split partials stacked on dim 0 (``o`` (S, ..., D), ``m``
     and ``l`` (S, ...)) in split order; a row with no valid key in any
-    split is 0."""
+    split is 0.  ``return_lse`` also returns the merged rows' log-sum-exp
+    ``M + log(max(L, 1e-30))``, as the merge kernel writes it."""
     M = m.amax(dim=0)
     w = torch.exp(m - M)
     L = (w * l).sum(dim=0)
     O = (w[..., None] * o).sum(dim=0)
     out = O / torch.clamp(L, min=1e-30)[..., None]
     out = torch.where((M <= 0.5 * NEG_INF)[..., None], torch.zeros_like(out), out)
+    if return_lse:
+        return out.to(dtype), M + torch.log(torch.clamp(L, min=1e-30))
     return out.to(dtype)
 
 
 def _flash_attention_cuda(q, k, v, *, causal, window, softcap, scale,
-                          q_offset, kv_offset, kv_valid_len, kv_positions=None):
+                          q_offset, kv_offset, kv_valid_len, kv_positions=None,
+                          return_lse=False):
     """Launch ``csrc/flash_attention.cu`` on the current stream."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
@@ -254,6 +278,7 @@ def _flash_attention_cuda(q, k, v, *, causal, window, softcap, scale,
                  int(q_offset), int(kv_offset), valid, kvp is not None, aligned)
     lib = _cuda.load("flash_attention", _SIG)
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device) if return_lse else None
     part = [None, None, None]
     if plan.splits > 1:
         n = plan.splits * B * Hkv * (Hq // Hkv) * Lq     # partial rows
@@ -268,24 +293,25 @@ def _flash_attention_cuda(q, k, v, *, causal, window, softcap, scale,
         int(bool(causal)), int(window), float(softcap), float(sc),
         _DTYPES[q.dtype], int(plan.path == "mma"), plan.block_rows, plan.block_keys,
         plan.key_base, plan.keys_per_split, plan.splits,
+        None if lse is None else lse.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale: Optional[float] = None, q_offset=0, kv_offset=0,
-                    kv_valid_len=None, kv_positions=None):
+                    kv_valid_len=None, kv_positions=None, return_lse=False):
     """Attention on whatever device ``q`` lies on: the CUDA kernel for a
     CUDA tensor (raising if it cannot build or launch), the plain
-    version for a CPU tensor.  ``flash_attention.launches`` counts
-    kernel launches."""
+    version for a CPU tensor.  ``return_lse`` also returns the rows'
+    log-sum-exp.  ``flash_attention.launches`` counts kernel launches."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_offset=q_offset, kv_offset=kv_offset, kv_valid_len=kv_valid_len,
-              kv_positions=kv_positions)
+              kv_positions=kv_positions, return_lse=return_lse)
     if q.device.type == "cuda":
         return _flash_attention_cuda(q, k, v, **kw)
     if q.device.type != "cpu":
@@ -294,3 +320,174 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True, window=0,
+                              softcap=0.0, scale: Optional[float] = None, q_offset=0,
+                              kv_offset=0, kv_valid_len=None, block: int = 1024):
+    """dq, dk, dv of :func:`chunked_attention` (no ``kv_positions``), step
+    for step as the reference's ``_flash_bwd``: ``delta = sum(dout *
+    out)``, each key block's probabilities recomputed from ``lse``, the
+    softcap's derivative ``1 - tanh^2``, float32 throughout, each
+    gradient in its input's dtype.  ``out`` (B, Hq, Lq, D) and ``lse``
+    (B, Hq, Lq) are the forward's."""
+    b, hq, lq, d = q.shape
+    _, hkv, lk, _ = k.shape
+    g = hq // hkv
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    dev = q.device
+    window = int(window)
+    block = min(block, lk)
+    nb = -(-lk // block)
+    pad = nb * block - lk
+    kf, vf = k.float(), v.float()
+    if pad:
+        kf = torch.nn.functional.pad(kf, (0, 0, 0, pad))
+        vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
+    qpos = q_offset + torch.arange(lq, dtype=torch.int64, device=dev)
+    valid = lk if kv_valid_len is None else int(kv_valid_len)
+    idx = torch.arange(nb * block, dtype=torch.int64, device=dev)
+    kvpos = torch.where(idx < min(valid, lk), kv_offset + idx, torch.full_like(idx, _IMAX))
+
+    qg = q.reshape(b, hkv, g, lq, d).float()
+    do = dout.reshape(b, hkv, g, lq, d).float()
+    delta = torch.sum(do * out.reshape(b, hkv, g, lq, d).float(), dim=-1)
+    lse = lse.reshape(b, hkv, g, lq)
+    dq = torch.zeros((b, hkv, g, lq, d), dtype=torch.float32, device=dev)
+    dk = torch.empty((b, hkv, nb * block, d), dtype=torch.float32, device=dev)
+    dv = torch.empty_like(dk)
+    for bi in range(nb):
+        sl = slice(bi * block, (bi + 1) * block)
+        kblk, vblk = kf[:, :, sl], vf[:, :, sl]
+        raw = torch.einsum("bhgqd,bhkd->bhgqk", qg, kblk) * sc
+        if softcap > 0:
+            t = torch.tanh(raw / softcap)
+            s = softcap * t
+            dcap = 1.0 - t * t
+        else:
+            s, dcap = raw, None
+        mask = _mask_for(causal, qpos, kvpos[sl], window)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        p = torch.exp(s - lse[..., None])
+        dv[:, :, sl] = torch.einsum("bhgqk,bhgqd->bhkd", p, do)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", do, vblk)
+        ds = p * (dp - delta[..., None])
+        if dcap is not None:
+            ds = ds * dcap
+        ds = ds * sc
+        dq = dq + torch.einsum("bhgqk,bhkd->bhgqd", ds, kblk)
+        dk[:, :, sl] = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg)
+    return (dq.reshape(b, hq, lq, d).to(q.dtype), dk[:, :, :lk].to(k.dtype),
+            dv[:, :, :lk].to(v.dtype))
+
+
+def bwd_path(dtype, D: int, aligned: bool = True) -> str:
+    """The backward kernel's design for one call: "mma" (bf16 on the
+    tensor cores: D a multiple of 8 up to 128, 16-byte aligned operands)
+    or "fma" (CUDA cores: float32, other widths)."""
+    return "mma" if dtype == torch.bfloat16 and D % 8 == 0 and D <= 128 and aligned else "fma"
+
+
+def _flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal, window, softcap, scale,
+                              q_offset, kv_offset, kv_valid_len):
+    """Launch ``csrc/flash_attention_bwd.cu`` on the current stream: the
+    delta pass, the dK/dV kernel and the dQ kernel, on the design
+    :func:`bwd_path` picks."""
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, out, dout)):
+        raise TypeError(
+            f"flash_attention_bwd takes float32 or bfloat16 q/k/v/out/dout of one dtype, "
+            f"got {q.dtype} / {k.dtype} / {v.dtype} / {out.dtype} / {dout.dtype}"
+        )
+    if any(t.device != q.device for t in (k, v, out, lse, dout)):
+        raise ValueError("flash_attention_bwd: q, k, v, out, lse and dout on different devices")
+    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"want q (B, Hq, Lq, D) and k, v (B, Hkv, Lk, D), got "
+                         f"{tuple(q.shape)} / {tuple(k.shape)} / {tuple(v.shape)}")
+    B, Hq, Lq, D = q.shape
+    _, Hkv, Lk, Dk = k.shape
+    if k.shape[0] != B or Dk != D or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not fit k {tuple(k.shape)}")
+    if not 0 < D <= _MAX_D or Lq == 0 or Lk == 0 or B == 0:
+        raise ValueError(f"flash_attention_bwd takes 0 < D <= {_MAX_D} and non-empty "
+                         f"q/k, got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape):
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be "
+                         f"shaped as q {tuple(q.shape)}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, Hq, Lq):
+        raise ValueError(f"lse must be ({B}, {Hq}, {Lq}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    valid = Lk if kv_valid_len is None else min(int(kv_valid_len), Lk)
+    if valid < 1:
+        raise ValueError(f"kv_valid_len must be >= 1, got {kv_valid_len}")
+    q, k, v, out, lse, dout = (t.contiguous() for t in (q, k, v, out, lse, dout))
+    sc = scale if scale is not None else D ** -0.5
+    aligned = (q.data_ptr() | k.data_ptr() | v.data_ptr() | dout.data_ptr()) % 16 == 0
+    path = bwd_path(q.dtype, D, aligned)
+    dev = q.get_device()
+    lib = _cuda.load("flash_attention_bwd", _BWD_SIG)
+    delta = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, Hq, Hkv, Lq, Lk, D, int(q_offset), int(kv_offset), valid,
+        int(bool(causal)), int(window), float(softcap), float(sc), _DTYPES[q.dtype],
+        int(path == "mma"), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0, softcap=0.0,
+                        scale: Optional[float] = None, q_offset=0, kv_offset=0,
+                        kv_valid_len=None):
+    """Attention's backward on whatever device ``q`` lies on: the CUDA
+    kernel for a CUDA tensor (raising if it cannot build or launch), the
+    plain version for a CPU tensor.  Returns (dq, dk, dv).
+    ``flash_attention_bwd.launches`` counts kernel launches."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              q_offset=q_offset, kv_offset=kv_offset, kv_valid_len=kv_valid_len)
+    if q.device.type == "cuda":
+        return _flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    return flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention (no ``kv_positions``): the forward
+    is :func:`flash_attention` with the log-sum-exp, the backward
+    :func:`flash_attention_bwd`, on the kernel for CUDA tensors and the
+    plain versions for CPU tensors.  The reference's ``custom_vjp``
+    ``_flash_core``: nothing but q, k, v, out and lse is kept between
+    the two.
+
+        out = FlashAttentionFn.apply(q, k, v, causal, window, softcap,
+                                     scale, q_offset, kv_offset, kv_valid_len)
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=0, softcap=0.0, scale=None,
+                q_offset=0, kv_offset=0, kv_valid_len=None):
+        kw = dict(causal=causal, window=int(window), softcap=float(softcap), scale=scale,
+                  q_offset=int(q_offset), kv_offset=int(kv_offset),
+                  kv_valid_len=kv_valid_len)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None, None

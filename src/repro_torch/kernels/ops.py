@@ -12,12 +12,21 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import flash_attention
+from .flash_attention import FlashAttentionFn, flash_attention
 from .moe_gmm import moe_gmm
 from .rglru import rglru_scan
 from .ssd import chunk_cumsum, ssd_intra_chunk
 
-__all__ = ["flash_attention", "moe_gmm", "ssd_chunked", "rglru_scan"]
+__all__ = ["flash_attention", "flash_attention_grad", "moe_gmm", "ssd_chunked", "rglru_scan"]
+
+
+def flash_attention_grad(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
+                         q_offset=0, kv_offset=0, kv_valid_len=None):
+    """:func:`flash_attention` that autograd differentiates: the forward
+    kernel with the log-sum-exp, then the backward kernel
+    (:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`)."""
+    return FlashAttentionFn.apply(q, k, v, causal, window, softcap, scale, q_offset,
+                                  kv_offset, kv_valid_len)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128,

@@ -1,1 +1,2 @@
-"""Launch layer: the serving driver (``python -m repro_torch.launch.serve``)."""
+"""Launch layer: the serving driver (``python -m repro_torch.launch.serve``)
+and the training driver (``python -m repro_torch.launch.train``)."""

@@ -3,6 +3,9 @@ logit softcap and optional per-head QK-norm.
 
 Attention goes through :func:`repro_torch.kernels.ops.flash_attention`:
 the CUDA kernel on the card, the plain blockwise version on the CPU.
+Without a cache and with grad enabled (the train path) it goes through
+:func:`~repro_torch.kernels.ops.flash_attention_grad`, whose backward is
+the backward kernel: autograd sees no kernel output as a leaf.
 Caches are written in place (the reference returns updated copies); the
 bounded-window ring cache (recurrentgemma) holds position ``p`` in slot
 ``p mod W``.
@@ -80,7 +83,8 @@ def attn_apply(
                 q_offset=pos, kv_offset=0, kv_valid_len=pos + l,
             )
     else:
-        out = ops.flash_attention(
+        attend = ops.flash_attention_grad if torch.is_grad_enabled() else ops.flash_attention
+        out = attend(
             q, k.contiguous(), v.contiguous(), causal=True, window=window,
             softcap=cfg.attn_logit_softcap, q_offset=0, kv_offset=0,
         )

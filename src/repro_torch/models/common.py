@@ -1,10 +1,10 @@
-"""Shared NN substrate, forward only: init, norms, RoPE, chunked
-(flash-style) attention and the gated MLP.
+"""Shared NN substrate: init, norms, RoPE, chunked (flash-style)
+attention, the gated MLP and the chunked cross-entropy.
 
 Functional torch over nested-dict parameter trees, in the reference's
-layouts (attention is ``(B, H, L, D)``).  The cross-entropy and the
-attention VJP wait for the training slice (ROADMAP: training/* and
-launch/train.py).
+layouts (attention is ``(B, H, L, D)``).  Attention's gradient is
+:class:`repro_torch.kernels.flash_attention.FlashAttentionFn`, whose
+plain backward is the reference's blockwise ``_flash_bwd``.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "NEG_INF",
@@ -22,6 +23,7 @@ __all__ = [
     "chunked_attention",
     "gated_mlp_init",
     "gated_mlp",
+    "chunked_xent",
 ]
 
 NEG_INF = -1e30
@@ -105,7 +107,8 @@ def chunked_attention(
     kv_positions: Optional[torch.Tensor] = None,  # (Lk,) ring positions; < 0 empty
     block: int = 1024,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Online-softmax attention over KV blocks: the flash-attention
     algorithm in plain torch, step for step as the reference's forward
     (``m``/``l``/``acc`` in float32, masked logits at ``-1e30``, the
@@ -117,6 +120,9 @@ def chunked_attention(
     (``kv_positions`` replaces ``kv_offset`` and ``kv_valid_len``).  This
     is the plain version of the CUDA flash-attention kernel
     (:mod:`repro_torch.kernels.flash_attention`).
+
+    ``return_lse`` also returns the rows' log-sum-exp ``m + log(max(l,
+    1e-30))``, (B, Hq, Lq) float32, which the backward reads.
     """
     b, hq, lq, d = q.shape
     _, hkv, lk, _ = k.shape
@@ -163,7 +169,10 @@ def chunked_attention(
         )
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, hq, lq, d).to(q.dtype)
+    out = out.reshape(b, hq, lq, d).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(torch.clamp(l, min=1e-30))).reshape(b, hq, lq)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -182,3 +191,74 @@ def gated_mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     u = torch.matmul(x, params["wu"])
     a = F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
     return torch.matmul(a * u, params["wd"])
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+class _MatmulF32Out(torch.autograd.Function):
+    """``x @ emb.T`` of bf16 (B*S, D) and (V, D) on the card, kept in
+    float32 (``torch.mm(..., out_dtype=float32)``, which autograd does not
+    differentiate).  The backward takes the float32 cotangent to the
+    inputs' dtype and runs two bf16 products with float32 sums, as a
+    TPU's default-precision matmul takes the reference's float32
+    cotangent: dx = g emb, demb = g^T x."""
+
+    @staticmethod
+    def forward(ctx, x, emb):
+        ctx.save_for_backward(x, emb)
+        return torch.mm(x, emb.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, emb = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return torch.mm(g, emb), torch.mm(g.t(), x)
+
+
+def _logits_f32(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """``x @ emb.T`` with float32 output, as the reference's einsum with
+    ``preferred_element_type=float32``: a bf16 product on the card keeps
+    its float32 sums; on the CPU the operands widen exactly."""
+    if x.dtype == torch.float32 and emb.dtype == torch.float32:
+        return torch.matmul(x, emb.t())
+    if x.is_cuda:
+        out = _MatmulF32Out.apply(x.reshape(-1, x.shape[-1]), emb)
+        return out.reshape(*x.shape[:-1], emb.shape[0])
+    return torch.matmul(x.float(), emb.float().t())
+
+
+def _xent_chunk(xc: torch.Tensor, emb: torch.Tensor, lc: torch.Tensor, softcap: float):
+    """Summed cross-entropy of one chunk over its valid (``>= 0``) labels,
+    and their count."""
+    logits = _apply_softcap(_logits_f32(xc, emb), softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    # a gather, not the reference's one-hot contraction: equal for finite
+    # logits, without another (B, chunk, V) float32 block
+    gold = logits.gather(-1, lc.clamp(min=0).unsqueeze(-1)).squeeze(-1)
+    valid = (lc >= 0).float()
+    return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+
+def chunked_xent(
+    x: torch.Tensor,            # (B, S, D) final hidden states
+    emb: torch.Tensor,          # (V, D) output embedding
+    labels: torch.Tensor,       # (B, S) integer; -1 carries no loss
+    *,
+    softcap: float = 0.0,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Mean cross-entropy over sequence chunks, so the (B, S, V) logits
+    never materialise: each chunk runs under ``torch.utils.checkpoint``,
+    so its (B, chunk, V) float32 logits are recomputed in the backward
+    pass rather than kept (V is 200 064 for phi4-mini)."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    labels = labels.long()
+    tot = cnt = None
+    for c0 in range(0, s, chunk):
+        t, n = checkpoint(_xent_chunk, x[:, c0:c0 + chunk], emb, labels[:, c0:c0 + chunk],
+                          softcap, use_reentrant=False, preserve_rng_state=False)
+        tot = t if tot is None else tot + t
+        cnt = n if cnt is None else cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

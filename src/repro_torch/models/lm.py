@@ -1,6 +1,6 @@
 """Decoder LM for the dense, MoE, Mamba-2 and RG-LRU hybrid stacks: ``init_params``
-and ``LM`` with ``embed`` / ``backbone`` / ``logits_last`` /
-``init_cache`` / ``prefill`` / ``decode_step``.
+and ``LM`` with ``embed`` / ``backbone`` / ``loss`` / ``logits_last`` /
+``init_cache`` / ``prefill`` / ``decode_step``, and ``train_step_fn``.
 
 Parameters are a nested dict of *stacked* per-layer tensors ``(L,
 ...)``, the reference's layout, so a parameter tree converts leaf for
@@ -8,29 +8,36 @@ leaf (:mod:`repro_torch.models.convert`).  The reference's ``lax.scan``
 over layers is a Python loop over those stacks; the caches are
 written in place, one layer view at a time.
 
+Training (``loss``, ``backbone(train=True)``) runs the dense stack: the
+layers run under ``torch.utils.checkpoint`` when ``cfg.remat`` (the
+reference's ``jax.checkpoint``), in groups of ~sqrt(L) as well when
+``sqrt_remat`` is set (its ``_grouped_scan``).
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item by title: MLA and leading dense layers, the codebook and patch
-frontends ("the rest of models/* and configs/*"), and the training
-loss ("training/* and launch/train.py").
+frontends ("the rest of models/* and configs/*"), and training the MoE,
+SSM and hybrid stacks, whose kernels have no backward yet
+(``check_trainable``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from .attention import attn_apply, attn_init
-from .common import dense_init, gated_mlp, gated_mlp_init, rms_norm
+from .common import chunked_xent, dense_init, gated_mlp, gated_mlp_init, rms_norm
 from .config import ModelConfig
 from .mamba2 import init_ssm_state, mamba_apply, mamba_init
 from .moe import moe_apply, moe_init
 from .rglru import init_lru_state, rglru_apply, rglru_init
 
-__all__ = ["LM", "init_params", "check_supported"]
+__all__ = ["LM", "init_params", "check_supported", "check_trainable", "train_step_fn"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -50,6 +57,21 @@ def check_supported(cfg: ModelConfig) -> None:
         f"{cfg.name}: the {cfg.family} stack is not ported yet: "
         f"ROADMAP: the rest of models/* and configs/* ({what})"
     )
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item, by title, for
+    a stack the port cannot train yet: the MoE, SSM and hybrid stacks,
+    whose kernels (``moe_gmm``, ``ssd_intra_chunk``, ``rglru_scan``) have
+    no backward, so autograd would silently give their inputs no
+    gradient."""
+    check_supported(cfg)
+    if cfg.num_experts or cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} stack is not ported yet: "
+            f"ROADMAP: training for the MoE, SSM and hybrid stacks (backward kernels "
+            f"for moe_gmm, ssd_intra_chunk and rglru_scan)"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -79,11 +101,19 @@ def _hybrid_layout(cfg: ModelConfig) -> Tuple[int, int]:
     return n_units * k + rem, n_units
 
 
-def _take(tree, i: int):
-    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
+def _unstack(tree, n: int) -> List:
+    """The ``n`` layers of a stacked parameter tree (views, no copies),
+    each leaf split once by ``unbind(0)``.  Under autograd the backward gathers the layers'
+    gradients with one ``stack`` per leaf, where indexing each layer
+    would write a zero-filled ``(L, ...)`` copy per layer."""
     if isinstance(tree, dict):
-        return {k: _take(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _ckpt(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------
@@ -154,22 +184,30 @@ class LM:
 
     # -- backbone ------------------------------------------------------------
     def backbone(self, params, x: torch.Tensor, *, positions: torch.Tensor,
-                 cache: Optional[Dict] = None, cache_pos: Optional[int] = None
-                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                 cache: Optional[Dict] = None, cache_pos: Optional[int] = None,
+                 train: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+        """``train`` (no cache; the dense stack only) remats the layers as
+        ``cfg.remat`` says."""
+        if train:
+            check_trainable(self.cfg)
+            if cache is not None:
+                raise ValueError("backbone(train=True) takes no cache")
         if self.cfg.family == "ssm":
             x, cache = self._ssm_stack(params, x, cache)
         elif self.cfg.family == "hybrid":
             x, cache = self._hybrid_stack(params, x, positions, cache, cache_pos)
         else:
-            x, cache = self._attn_stack(params, x, positions, cache, cache_pos)
+            x, cache = self._attn_stack(params, x, positions, cache, cache_pos, train)
         return rms_norm(x, params["final_norm"]), cache
 
-    def _attn_stack(self, params, x, positions, cache, cache_pos):
+    def _attn_stack(self, params, x, positions, cache, cache_pos, train=False):
         cfg = self.cfg
         windows, thetas = _layer_windows(cfg), _layer_thetas(cfg)
         moe = bool(cfg.num_experts)
-        for i in range(cfg.num_layers):
-            layer = _take(params["layers"], i)
+        layers = _unstack(params["layers"], cfg.num_layers)
+
+        def block(x, i):
+            layer = layers[i]
             h = rms_norm(x, layer["ln1"])
             out, _ = attn_apply(
                 layer["attn"], h, cfg, positions=positions,
@@ -179,8 +217,42 @@ class LM:
             )
             x = x + out
             h = rms_norm(x, layer["ln2"])
-            x = x + (moe_apply(layer["moe"], h, cfg) if moe else gated_mlp(layer["mlp"], h))
+            return x + (moe_apply(layer["moe"], h, cfg) if moe else gated_mlp(layer["mlp"], h))
+
+        if train:
+            return self._train_layers(block, x, cfg.num_layers), cache
+        for i in range(cfg.num_layers):
+            x = block(x, i)
         return x, cache
+
+    def _train_layers(self, block, x, n_layers: int):
+        """``block(x, i)`` for each layer in order, each under
+        ``torch.utils.checkpoint`` when ``cfg.remat``.  With ``sqrt_remat``
+        (and remat, L >= 8) groups of g = int(sqrt(L)) layers are also
+        checkpointed as a whole, the rest run flat: the reference's
+        ``_grouped_scan``."""
+        remat = self.cfg.remat
+
+        def layer(x, i):
+            return _ckpt(block, x, i) if remat else block(x, i)
+
+        g = int(math.sqrt(n_layers)) if remat and getattr(self.cfg, "sqrt_remat", False) else 0
+        if g < 2 or n_layers < 8:
+            for i in range(n_layers):
+                x = layer(x, i)
+            return x
+
+        def group(x, first):
+            for i in range(first, first + g):
+                x = layer(x, i)
+            return x
+
+        n_groups = n_layers // g
+        for gi in range(n_groups):
+            x = _ckpt(group, x, gi * g)
+        for i in range(n_groups * g, n_layers):
+            x = layer(x, i)
+        return x
 
     def _ssm_stack(self, params, x, cache):
         """Mamba-2 layers.  A decode step's state is float32 (the
@@ -189,8 +261,7 @@ class LM:
         step and stay so, as the reference's do."""
         if cache is not None and x.shape[1] == 1 and cache["ssm"].dtype != torch.float32:
             cache["ssm"] = cache["ssm"].float()
-        for i in range(self.cfg.num_layers):
-            layer = _take(params["layers"], i)
+        for i, layer in enumerate(_unstack(params["layers"], self.cfg.num_layers)):
             h = rms_norm(x, layer["norm"])
             state = None if cache is None else {"ssm": cache["ssm"][i],
                                                 "conv": cache["conv"][i]}
@@ -211,9 +282,11 @@ class LM:
         for u in range(n_att):
             order += [("lru", u * k + j) for j in range(k)] + [("attn", u)]
         order += [("lru", i) for i in range(n_att * k, n_lru)]
+        stacks = {"lru": _unstack(params["lru_layers"], n_lru),
+                  "attn": _unstack(params["attn_layers"], n_att)}
         for kind, i in order:
+            layer = stacks[kind][i]
             if kind == "lru":
-                layer = _take(params["lru_layers"], i)
                 state = None if cache is None else {"h": cache["h"][i],
                                                     "conv": cache["conv"][i]}
                 out, new = rglru_apply(layer["lru"], rms_norm(x, layer["ln1"]), cfg, state)
@@ -221,7 +294,6 @@ class LM:
                     cache["h"][i] = new["h"]
                     cache["conv"][i] = new["conv"]
             else:
-                layer = _take(params["attn_layers"], i)
                 out, _ = attn_apply(
                     layer["attn"], rms_norm(x, layer["ln1"]), cfg, positions=positions,
                     window=cfg.window, theta=cfg.rope_theta,
@@ -233,6 +305,17 @@ class LM:
         return x, cache
 
     # -- heads ---------------------------------------------------------------
+    def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy of a plain-token batch (``tokens``,
+        ``labels`` (B, S); a label of -1 carries no loss), the layers in
+        train mode."""
+        cfg = self.cfg
+        x = self.embed(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _ = self.backbone(params, x, positions=positions, train=True)
+        return chunked_xent(x, params["embed"], batch["labels"],
+                            softcap=cfg.final_logit_softcap)
+
     def logits_last(self, params, x_last: torch.Tensor) -> torch.Tensor:
         """(B, D) -> (B, V)."""
         out = torch.matmul(x_last, params["embed"].t())
@@ -273,3 +356,17 @@ class LM:
         x, cache = self.backbone(params, x, positions=positions, cache=cache,
                                  cache_pos=int(pos))
         return self.logits_last(params, x[:, -1]), cache
+
+
+# ---------------------------------------------------------------------------
+# functional entry points
+# ---------------------------------------------------------------------------
+def train_step_fn(cfg: ModelConfig):
+    """``loss_fn(params, batch)``: the scalar that a train step
+    differentiates (the reference's ``train_step_fn``)."""
+    model = LM(cfg)
+
+    def loss_fn(params, batch):
+        return model.loss(params, batch)
+
+    return loss_fn

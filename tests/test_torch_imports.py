@@ -27,6 +27,10 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.serving, repro_torch.serving.colocated, repro_torch.launch.serve\n"
         "import repro_torch.obs, repro_torch.obs.schema, repro_torch.sweeps\n"
         "import repro_torch.sweeps.service, repro_torch.sweeps.worker\n"
+        "import repro_torch.training, repro_torch.training.optimizer\n"
+        "import repro_torch.training.data, repro_torch.training.checkpoint\n"
+        "import repro_torch.training.trainer, repro_torch.launch.train\n"
+        "import repro_torch.distribution, repro_torch.distribution.elastic\n"
         "bad = sorted(m for m in sys.modules if m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m] is not None]\n"
