@@ -29,7 +29,11 @@ Phases, each printing one JSON line:
    the forward's log-sum-exp (split plans included) and attention's
    backward (``flash_attention_bwd``) at phi4-mini's train shape, a
    2048-token one and the forward's prefill and sweep cases, in bf16 and
-   f32 (``TOL_BWD``);
+   f32 (``TOL_BWD``); the widths of the last six archs: flash at D = 96,
+   160 and 192 (padded in the kernel), gemma2's softcap in its 4096
+   window and gemma3's D = 256 at g = 2, and ``moe_gmm`` at deepseek-v2's
+   D = 5120 (its serve shape, a narrow E, an F no multiple of 64), also
+   against the float64 oracle;
 4. ``sampler`` — the torch trace sampler on the card against the NumPy
    host path (R=1024, ``rtol=1e-12``);
 5. ``main``    — ``run(commute, ads_tile, cockpit_replicas=4, seeds=range
@@ -62,19 +66,29 @@ Phases, each printing one JSON line:
    allocation replayed through kernel and plain version (equal), and 20
    rounds under a dispatch mode that fails on any (R, W, W) output;
 11. ``serve``   — the LM serving path, for each arch of ``SERVE_ARCHS`` in
-   turn (each freed before the next is built): ``ServingEngine`` at full
-   width in bf16 (random weights from seed 0) with the reference
-   launcher's traffic (12 requests, prompt 16, 16 new tokens, batch 4,
-   max_len 128), every launch counter set to 0 just before and read just
-   after, and each kernel's count asserted; tokens/s, request and
-   first-token latency, weight bytes; a profiled window of decode steps
-   (``serve_profile``); one request's prefill and 4 decode steps held
-   against the port's CPU path on the same weights, widened to float32 on
-   both sides (``serve_xcheck``; ``XCHECK_LAYERS`` cuts the depth where
-   the float32 copy would not fit the host); and for mamba2-2.7b and
-   recurrentgemma-9b one long request on the same weights (``serve_long``:
-   prompt 1024 / 2032, launches asserted, first-token latency, a profiled
-   prefill's device ms and the SSD / RG-LRU kernel's share of it);
+   turn (every arch but phi4-mini, which ``train`` runs; each freed
+   before the next is built): ``ServingEngine``
+   at full width in bf16 (random weights from seed 0; deepseek-v2 at
+   depth 4, ``SERVE_LAYERS``, printed under ``reduced``) with the
+   reference launcher's traffic (12 requests, prompt 16, 16 new tokens,
+   batch 4, max_len 128), every launch counter set to 0 just before and
+   read just after, and each kernel's count asserted; musicgen, which
+   the engine cannot feed (ROADMAP C14), the same traffic through
+   ``LM.prefill`` / ``decode_step`` with (B, 4, S) tokens; tokens/s,
+   request and first-token latency, weight bytes, peak memory; a
+   profiled window of decode steps (``serve_profile``); one request's
+   prefill and 4 decode steps held against the port's CPU path on the
+   same weights, widened to float32 on both sides (``serve_xcheck``;
+   ``XCHECK_LAYERS`` cuts the depth where the float32 copy would not fit
+   the host); phi-3-vision's image request (``serve_patches``: 576 patch
+   embeddings and 16 tokens in one prefill, then 4 decode steps; its
+   cross-check takes the same patches); one long request on the same
+   weights for mamba2-2.7b, recurrentgemma-9b, gemma3-4b and gemma2-27b
+   (``serve_long``: prompt 1024 / 2032 / 2048 / 4608, the last two past
+   the windows; launches asserted, first-token latency, a profiled
+   prefill's device ms and the SSD / RG-LRU / flash kernel's share of
+   it); ``moe_gmm`` timed at deepseek-v2's serve shape on its own
+   experts;
 12. ``train``   — ``Trainer`` on phi4-mini at full width in bf16 (seed 0,
    batch 8 x seq 128, 4 steps), every launch counter set to 0 just before
    and read just after (the forward kernel twice per layer a step under
@@ -89,7 +103,8 @@ Phases, each printing one JSON line:
    path's shapes, then the ``kernels`` line; ``moe_gmm`` is also held on
    granite-moe's own expert weights against the float32 references and a
    float64 oracle (``TOL_MOE_MODEL``), and with ``--moe-baseline
-   OTHER/moe_gmm.cu`` another build of it is timed beside this one;
+   OTHER/moe_gmm.cu`` another build of it is timed beside this one and
+   must give this one's bits;
 14. ``flash_ab`` (only with ``--flash-baseline OTHER/src``) — flash
    attention's per-call and device time at the serve shapes from another
    tree and from this one, each in a fresh process;
@@ -370,6 +385,21 @@ FLASH_CASES = (
     + [(f"sweep_{b}x{hq}x{hkv}x{l}x{d}_w{w}_c{int(c)}", b, hq, hkv, l, l, d, 0, l, w, c)
        for (b, hq, hkv, l, d) in [(1, 4, 4, 128, 64), (2, 8, 2, 96, 32), (1, 4, 1, 256, 128)]
        for (w, c) in [(0, 0.0), (32, 0.0), (0, 50.0)]]
+    # the widths the last six archs serve at: phi-3-vision's D = 96 (padded
+    # to 128 in the kernel) over its 576 patches + 16 tokens and decoding;
+    # stablelm's D = 160 and the MLA prefill's D = 192 (both padded to
+    # 256; MLA at Hq = Hkv = 128); gemma2's softcap 50 in its window of
+    # 4096 past the window; gemma3's D = 256 at g = 2 in its window of 1024
+    + [("phi3v_patch_prefill_d96", 1, 32, 32, 592, 592, 96, 0, 592, 0, 0.0),
+       ("phi3v_decode_d96", 4, 32, 32, 1, 640, 96, 595, 596, 0, 0.0),
+       ("stablelm_prefill_d160", 1, 32, 8, 16, 128, 160, 0, 16, 0, 0.0),
+       ("stablelm_decode_d160", 4, 32, 8, 1, 128, 160, 30, 31, 0, 0.0),
+       ("mla_prefill_d192", 1, 128, 128, 16, 16, 192, 0, 16, 0, 0.0),
+       ("mla_prefill_d192_L300", 1, 128, 128, 300, 300, 192, 0, 300, 0, 0.0),
+       ("gemma2_decode_softcap50_w4096", 2, 32, 16, 1, 4624, 128, 4610, 4611, 4096, 50.0),
+       ("gemma2_prefill_softcap50_w4096", 1, 32, 16, 64, 4624, 128, 4560, 4624, 4096, 50.0),
+       ("gemma3_prefill_d256_g2_w1024", 1, 8, 4, 100, 2048, 256, 1948, 2048, 1024, 0.0),
+       ("gemma3_decode_d256_g2_w1024", 4, 8, 4, 1, 2064, 256, 2050, 2051, 1024, 0.0)]
 )
 
 #: attention's backward, kernel vs plain version on the same q, k, v, out,
@@ -409,6 +439,12 @@ MOE_CASES = [
     ("sweep_4x64x32x64", 4, 64, 32, 64, 0.1),
     ("sweep_8x96x16x32", 8, 96, 16, 32, 0.1),
     ("reduced_4x10x64x32", 4, 10, 64, 32, None),
+    # deepseek-v2's serve shape (160 experts, capacity 8, d_model 5120,
+    # expert d_ff 1536: more than one panel of D), and D = 5120 at a narrow
+    # E with C = 20 (32 rows a pass) and an F that is no multiple of 64
+    ("deepseek_serve", 160, 8, 5120, 1536, None),
+    ("narrow_e4_c20_d5120", 4, 20, 5120, 1536, None),
+    ("narrow_e2_c8_d5120_f200", 2, 8, 5120, 200, None),
 ]
 
 
@@ -593,6 +629,10 @@ def phase_kernel(errs):
             check(MG.moe_gmm.launches == before + 1, f"moe_gmm {name}: no launch")
             err = _held(got, MG.moe_gmm_plain(x, wg, wu, wd), dtype, f"moe_gmm {name} {dtype}")
             _held(got, kref.moe_gmm_ref(x, wg, wu, wd), dtype, f"moe_gmm {name} {dtype} vs ref")
+            if D > 1024:
+                _held(got, MG.moe_gmm_oracle64(x, wg, wu, wd), dtype,
+                      f"moe_gmm {name} {dtype} vs the float64 oracle")
+            del x, wg, wu, wd, got
             errs["moe_gmm"].append(err)
             res[f"{name}/{str(dtype)[6:]}"] = err
     emit("kernel", name="moe_gmm", cases=len(res), tol={str(k)[6:]: v for k, v in TOL.items()},
@@ -1184,7 +1224,14 @@ def phase_sweep():
 
 
 #: the archs the serve phase drives, in turn, at full width
-SERVE_ARCHS = ("granite_moe_1b", "mamba2_2p7b", "recurrentgemma_9b")
+SERVE_ARCHS = ("granite_moe_1b", "mamba2_2p7b", "recurrentgemma_9b", "gemma3_4b",
+               "phi3_vision_4p2b", "musicgen_large", "stablelm_12b", "deepseek_v2_236b",
+               "gemma2_27b")
+#: archs served at a cut depth: deepseek-v2's 60 layers are 472 GB in
+#: bf16, which no single card holds (whole-model serving waits for the
+#: sharding of ROADMAP A8); 1 dense and 3 MoE layers at full width are
+#: ~25.5 GB
+SERVE_LAYERS = {"deepseek-v2-236b": 4}
 #: the reference launcher's traffic (src/repro/launch/serve.py): 12
 #: requests, prompt 16, 16 new tokens, batch 4, max_len 128
 SERVE = dict(requests=12, prompt_len=16, max_new=16, batch=4, max_len=128)
@@ -1200,8 +1247,14 @@ XCHECK_LOGIT_ATOL = 2e-3
 #: depth of the float32 cross-check per arch (absent: the full depth).
 #: recurrentgemma-9b's 9.4 B parameters are 37.6 GB in float32, which with
 #: the host's own copy would not fit: it is checked at full width on one
-#: (lru, lru, attn) unit and the two trailing LRU blocks
-XCHECK_LAYERS = {"recurrentgemma-9b": 5}
+#: (lru, lru, attn) unit and the two trailing LRU blocks.  The later archs
+#: likewise, at depths that keep the float32 copy (card and host) and the
+#: host's float32 run small: gemma3 two 6-layer (5 local, 1 global)
+#: units, gemma2 two (local, global) pairs, deepseek its dense layer and
+#: one MoE layer (15 GB of experts in float32)
+XCHECK_LAYERS = {"recurrentgemma-9b": 5, "gemma3-4b": 12, "phi-3-vision-4.2b": 8,
+                 "musicgen-large": 12, "stablelm-12b": 8, "deepseek-v2-236b": 2,
+                 "gemma2-27b": 4}
 
 
 def _leaves(tree):
@@ -1241,39 +1294,60 @@ def _expected_launches(cfg, prefill_calls, decode_calls):
         want["rglru_scan"] = n_lru * calls
         want["flash_attention"] = n_att * calls
     else:
-        want["flash_attention"] = cfg.num_layers * calls
+        # MLA's decode is the absorbed form in plain torch: attention's
+        # kernel runs in its prefills only
+        want["flash_attention"] = cfg.num_layers * (prefill_calls if cfg.mla else calls)
         if cfg.num_experts:
-            want["moe_gmm"] = cfg.num_layers * calls
+            want["moe_gmm"] = (cfg.num_layers - cfg.first_dense_layers) * calls
     return want
 
 
-def _greedy_steps(model, params, prompt, steps, device, feed=None):
-    """Prefill ``prompt`` at batch 1, then ``steps`` decode steps; each
-    step feeds ``feed[i]`` (teacher forcing) or the last greedy token.
-    Returns float32 logits per step and the greedy tokens."""
-    cache = model.init_cache(1, SERVE["max_len"], device)
-    toks = torch.as_tensor(prompt[None].astype(np.int64), device=device)
+def _batch(cfg, toks, device, patches=None):
+    """The model's input for token ids ``toks`` ((B, S), or (B, K, S) for
+    codebooks), with ``patches`` (B, P, D) in front when given."""
+    batch = {"tokens": torch.as_tensor(np.asarray(toks, np.int64), device=device)}
+    if patches is not None:
+        batch["patch_embeds"] = patches.to(device=device, dtype=cfg.torch_dtype)
+    return batch
+
+
+def _greedy_steps(model, params, prompt, steps, device, feed=None, patches=None):
+    """Prefill ``prompt`` ((S,), or (K, S) for codebooks) at batch 1, with
+    ``patches`` (1, P, D) in front when given, then ``steps`` decode steps;
+    each step feeds ``feed[i]`` (teacher forcing) or the last greedy token
+    (per codebook).  Returns float32 logits per step and the greedy tokens."""
+    cfg = model.cfg
+    n_front = 0 if patches is None else patches.shape[1]
+    n_prompt = np.shape(prompt)[-1]
+    cache = model.init_cache(1, max(SERVE["max_len"], n_front + n_prompt + steps + 1), device)
     out, greedy = [], []
     with torch.inference_mode():
-        lg, cache = model.prefill(params, {"tokens": toks}, cache)
+        lg, cache = model.prefill(params, _batch(cfg, np.asarray(prompt)[None], device, patches),
+                                  cache)
         for i in range(steps + 1):
             if i:
                 nxt = feed[i - 1] if feed is not None else greedy[-1]
-                t = torch.tensor([[nxt]], dtype=torch.int64, device=device)
-                lg, cache = model.decode_step(params, {"tokens": t}, cache,
-                                              len(prompt) + i - 1)
+                t = np.asarray(nxt).reshape((1, -1, 1) if cfg.num_codebooks else (1, 1))
+                lg, cache = model.decode_step(params, _batch(cfg, t, device), cache,
+                                              n_front + n_prompt + i - 1)
             out.append(lg[0].float().cpu())
-            greedy.append(int(torch.argmax(lg[0])))
+            g = torch.argmax(lg[0], dim=-1)
+            greedy.append(g.tolist() if g.dim() else int(g))
     return out, greedy
 
 
 def _cut_depth(cfg, params, layers):
     """The first ``layers`` layers of a stacked tree (for the hybrid, the
-    LRU and attention stacks its shorter pattern needs)."""
+    LRU and attention stacks its shorter pattern needs; a MoE stack's
+    leading dense layers first)."""
     cut = dataclasses.replace(cfg, num_layers=layers)
     if cfg.family == "hybrid":
         n_lru, n_att = hybrid_layout(cut)
         stacks = {"lru_layers": n_lru, "attn_layers": n_att}
+    elif "dense_layers" in params:
+        n_dense = cfg.first_dense_layers
+        check(layers > n_dense, f"cut of {cfg.name} to {layers} layers keeps no MoE layer")
+        stacks = {"dense_layers": n_dense, "layers": layers - n_dense}
     else:
         stacks = {"layers": layers}
     out = dict(params)
@@ -1314,7 +1388,7 @@ def _routing_check(cfg, params, prompt, tok32, logits32, routes32):
     finally:
         undo()
     check(len(rec) == len(routes32), "routing check: router calls differ")
-    n_layers = cfg.num_layers
+    n_layers = cfg.num_layers - cfg.first_dense_layers
     by_layer = [0] * n_layers
     total = 0
     first = None
@@ -1333,9 +1407,9 @@ def _routing_check(cfg, params, prompt, tok32, logits32, routes32):
     return res
 
 
-def _serve_xcheck(cfg, params, prompt):
+def _serve_xcheck(cfg, params, prompt, patches=None):
     layers = XCHECK_LAYERS.get(cfg.name)
-    if layers:
+    if layers and layers < cfg.num_layers:
         cfg, params = _cut_depth(cfg, params, layers)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model = LM(cfg32)
@@ -1343,7 +1417,8 @@ def _serve_xcheck(cfg, params, prompt):
     routes32, undo = _record_routes() if cfg.num_experts else (None, lambda: None)
     t = time.perf_counter()
     try:
-        gpu_logits, gpu_tok = _greedy_steps(model, p32, prompt, XCHECK_STEPS, "cuda")
+        gpu_logits, gpu_tok = _greedy_steps(model, p32, prompt, XCHECK_STEPS, "cuda",
+                                            patches=patches)
     finally:
         undo()
     gpu_s = time.perf_counter() - t
@@ -1352,16 +1427,17 @@ def _serve_xcheck(cfg, params, prompt):
     p32 = _to(p32, "cpu")
     t = time.perf_counter()
     cpu_logits, cpu_tok = _greedy_steps(model, p32, prompt, XCHECK_STEPS, "cpu",
-                                        feed=gpu_tok[:-1])
+                                        feed=gpu_tok[:-1], patches=patches)
     cpu_s = time.perf_counter() - t
     errs, margins = [], []
     for a, b in zip(gpu_logits, cpu_logits):
         check(bool(torch.isfinite(a).all()), "serve xcheck: non-finite card logits")
         errs.append(float((a - b).abs().max()))
-        top2 = torch.topk(b, 2).values
-        margins.append(float(top2[0] - top2[1]))
+        top2 = torch.topk(b, 2, dim=-1).values
+        margins.append(float((top2[..., 0] - top2[..., 1]).min()))
     del p32
     res = dict(arch=cfg.name, layers=cfg.num_layers, dtype="float32",
+               patches=0 if patches is None else patches.shape[1],
                steps=1 + XCHECK_STEPS, tokens=gpu_tok,
                max_abs_logit_err=errs, cpu_top2_margin=margins,
                logit_atol=XCHECK_LOGIT_ATOL, card_s=gpu_s, cpu_s=cpu_s)
@@ -1431,7 +1507,11 @@ def _serve_profile(cfg, params, ecfg, n_steps=3):
 #: mamba2: 4 chunks of 256; recurrentgemma: a prompt that fills 2032 of
 #: its 2048 ring slots without wrapping them in the prefill (ROADMAP C9)
 SERVE_LONG = {"mamba2-2.7b": (1024, 1040, "ssd_intra_chunk"),
-              "recurrentgemma-9b": (2032, 2048, "rglru_scan")}
+              "recurrentgemma-9b": (2032, 2048, "rglru_scan"),
+              # past the windows: gemma3's 1024 (5 of 6 layers) and
+              # gemma2's 4096 (every other layer)
+              "gemma3-4b": (2048, 2064, "flash_attention"),
+              "gemma2-27b": (4608, 4624, "flash_attention")}
 
 
 def _serve_long(cfg, params, prompt_len, max_len, kernel):
@@ -1467,45 +1547,45 @@ def _serve_long(cfg, params, prompt_len, max_len, kernel):
           and all(0 <= t < cfg.vocab_size for t in req.generated),
           f"serve_long {cfg.name}: tokens {req.generated}")
 
-    eng.submit(request(1))
-    _zero_counts()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        eng._admit()             # the prefill, and nothing else
-        torch.cuda.synchronize()
-        prefill_ms = 1e3 * (time.perf_counter() - t)
-    prefill_launches = _counts()[kernel]
-    eng.run_until_drained()
-    n_kern, busy, by_name = _device_kernels(prof)
+    # the profiler at times drops a few of a window's kernels (one of 46
+    # flash kernels of gemma2's 4608-token prefill, once in three runs):
+    # such a window is taken once more, with another request
     tag = DEVICE_NAMES[kernel][0]
-    kern_n = sum(v[0] for k, v in by_name.items() if tag in k)
+    for attempt in (1, 2):
+        eng.submit(request(attempt))
+        _zero_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            eng._admit()             # the prefill, and nothing else
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t)
+        prefill_launches = _counts()[kernel]
+        eng.run_until_drained()
+        n_kern, busy, by_name = _device_kernels(prof)
+        kern_n = sum(v[0] for k, v in by_name.items() if tag in k)
+        if kern_n == prefill_launches > 0:
+            break
     kern_us = sum(v[1] for k, v in by_name.items() if tag in k)
     total_us = sum(v[1] for v in by_name.values())
     check(kern_n == prefill_launches > 0,
-          f"serve_long {cfg.name}: {kern_n} {tag} kernels for {prefill_launches} launches")
+          f"serve_long {cfg.name}: {kern_n} {tag} kernels for {prefill_launches} launches "
+          f"in each of two profiled prefills")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     emit("serve_long", arch=cfg.name, prompt_len=prompt_len, max_new=SERVE["max_new"],
          max_len=max_len, first_token_s=req.first_token_s - req.arrival_s,
          latency_s=req.finish_s - req.arrival_s, tokens=len(req.generated),
          launches=launches, kernel=kernel, prefill_launches=prefill_launches,
          prefill_wall_ms_profiled=prefill_ms, prefill_device_kernels=n_kern,
+         profiled_prefills=attempt,
          prefill_device_ms=total_us / 1e3, prefill_device_busy_ms=busy / 1e3,
          kernel_device_ms=kern_us / 1e3, kernel_share=kern_us / total_us,
          top_device_ms={k[:60]: [v[0], round(v[1] / 1e3, 4)] for k, v in top})
 
 
-def phase_serve(arch):
-    cfg = get_config(arch)
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    params = init_params(cfg, device="cuda",
-                         generator=torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
-    weight_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
-    ecfg = EngineConfig(max_batch=SERVE["batch"], max_len=SERVE["max_len"])
-
+def _serve_burst(cfg, params, ecfg):
+    """The launcher's traffic through ``ServingEngine``: the requests, the
+    engine and the launch counts of the run."""
     # warm-up request (cuBLAS handles, kernel libraries) on its own engine
     warm = ServingEngine(cfg, params, ecfg, device="cuda")
     warm.submit(Request(rid=-1, prompt=np.zeros(SERVE["prompt_len"], np.int32),
@@ -1520,40 +1600,169 @@ def phase_serve(arch):
             for i in range(SERVE["requests"])]
     _zero_counts()
     torch.cuda.synchronize()
-    t0 = time.time()
     for r in reqs:
         r.arrival_s = time.time()
         engine.submit(r)
     engine.run_until_drained()
     torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = _counts()
+    return reqs, engine.prefill_calls, engine.decode_calls, _counts()
 
-    want = _expected_launches(cfg, engine.prefill_calls, engine.decode_calls)
+
+def _serve_codebooks(cfg, params):
+    """The launcher's traffic for musicgen, whose (B, K, S) codebook tokens
+    the engine cannot feed (ROADMAP C14): the same requests, a batch of 4
+    at a time, through ``LM.prefill`` and ``LM.decode_step`` directly, with
+    greedy argmax per codebook.  A request's tokens are its frames of K
+    codes."""
+    model, K = LM(cfg), cfg.num_codebooks
+    B, n_new = SERVE["batch"], SERVE["max_new"]
+    rng = np.random.RandomState(0)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, (K, SERVE["prompt_len"]))
+                    .astype(np.int32), max_new_tokens=n_new) for i in range(SERVE["requests"])]
+
+    def run(group):
+        toks = np.stack([r.prompt for r in group])
+        cache = model.init_cache(len(group), SERVE["max_len"], "cuda")
+        with torch.inference_mode():
+            lg, cache = model.prefill(params, _batch(cfg, toks, "cuda"), cache)
+            nxt = torch.argmax(lg, dim=-1)                        # (B, K)
+            out = [nxt]
+            first = time.time()
+            for i in range(n_new - 1):
+                lg, cache = model.decode_step(params, {"tokens": nxt[..., None]}, cache,
+                                              toks.shape[-1] + i)
+                nxt = torch.argmax(lg, dim=-1)
+                out.append(nxt)
+            frames = torch.stack(out, dim=-1).cpu().numpy()       # (B, K, n_new)
+        done = time.time()
+        for j, r in enumerate(group):
+            r.generated = [frames[j, :, t].tolist() for t in range(n_new)]
+            r.first_token_s, r.finish_s = first, done
+
+    run(reqs[:B])                                   # warm-up
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for r in reqs:
+        r.arrival_s = t0
+    for g in range(0, len(reqs), B):
+        run(reqs[g:g + B])
+    torch.cuda.synchronize()
+    groups = -(-len(reqs) // B)
+    return reqs, groups, groups * (n_new - 1), _counts()
+
+
+#: phi-3-vision's image request: 576 patch embeddings (random, from a
+#: seed) and 16 tokens in one prefill, then 4 decode steps, at batch 1
+PATCH_REQUEST = dict(prompt_len=16, decode_steps=4, max_len=640)
+
+
+def _serve_patches(cfg, params):
+    """One image request through ``LM.prefill`` / ``decode_step`` (the
+    engine's max_len of 128 cannot hold 576 patches): first-token latency,
+    decode step wall, launches asserted.  Returns the patches and prompt,
+    which the float32 cross-check takes too."""
+    model = LM(cfg)
+    n, r = cfg.num_patches, PATCH_REQUEST
+    patches = _randn((1, n, cfg.d_model), cfg.torch_dtype, seed=31)
+    prompt = np.random.RandomState(3).randint(0, cfg.vocab_size, (r["prompt_len"],))
+
+    def run():
+        cache = model.init_cache(1, r["max_len"], "cuda")
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = model.prefill(params, _batch(cfg, prompt[None], "cuda", patches), cache)
+            tok = torch.argmax(lg, dim=-1)
+            first = int(tok[0])
+            t1 = time.perf_counter()
+            toks = [first]
+            for i in range(r["decode_steps"]):
+                lg, cache = model.decode_step(params, {"tokens": tok[:, None]}, cache,
+                                              n + len(prompt) + i)
+                tok = torch.argmax(lg, dim=-1)
+                toks.append(int(tok[0]))
+            t2 = time.perf_counter()
+        return toks, t1 - t0, (t2 - t1) / r["decode_steps"]
+
+    run()                                           # warm-up
+    _zero_counts()
+    toks, first_s, step_s = run()
+    launches = _counts()
+    want = _expected_launches(cfg, 1, r["decode_steps"])
+    check(launches == want, f"serve_patches: launches {launches}, want {want}")
+    check(all(0 <= t < cfg.vocab_size for t in toks), f"serve_patches: tokens {toks}")
+    emit("serve_patches", arch=cfg.name, patches=n, prompt_len=len(prompt),
+         decode_steps=r["decode_steps"], first_token_s=first_s, decode_step_s=step_s,
+         tokens=toks, launches=launches)
+    return patches, prompt
+
+
+def phase_serve(arch):
+    cfg = get_config(arch)
+    reduced = None
+    if cfg.name in SERVE_LAYERS:
+        layers = SERVE_LAYERS[cfg.name]
+        reduced = dict(num_layers=[cfg.num_layers, layers],
+                       why="the full depth does not fit one card (ROADMAP A8)")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weight_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    ecfg = EngineConfig(max_batch=SERVE["batch"], max_len=SERVE["max_len"])
+
+    t0 = time.time()
+    if cfg.num_codebooks:
+        reqs, prefill_calls, decode_calls, launches = _serve_codebooks(cfg, params)
+    else:
+        reqs, prefill_calls, decode_calls, launches = _serve_burst(cfg, params, ecfg)
+    wall = time.time() - t0
+
+    want = _expected_launches(cfg, prefill_calls, decode_calls)
     check(launches == want, f"serve {arch}: launches {launches}, want {want}")
-    toks = [t for r in reqs for t in r.generated]
+    toks = [t for r in reqs for t in np.ravel(r.generated)]
     check(all(len(r.generated) == SERVE["max_new"] for r in reqs), "serve: short request")
     check(all(0 <= t < cfg.vocab_size for t in toks), "serve: token outside [0, vocab)")
     lat = np.array([r.finish_s - r.arrival_s for r in reqs])
     ftl = np.array([r.first_token_s - r.arrival_s for r in reqs])
-    emit("serve", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
+    n_tok = sum(len(r.generated) for r in reqs)
+    emit("serve", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers, reduced=reduced,
+         through="ServingEngine" if not cfg.num_codebooks else "LM.prefill/decode_step",
          params=int(sum(p.numel() for p in _leaves(params))), weight_bytes=int(weight_bytes),
-         init_s=init_s, traffic=SERVE, wall_s=wall, tokens=len(toks),
-         tokens_per_s=len(toks) / wall,
+         init_s=init_s, traffic=SERVE, wall_s=wall, tokens=n_tok,
+         codes_per_token=cfg.num_codebooks or 1, tokens_per_s=n_tok / wall,
          latency_p50_s=float(np.percentile(lat, 50)), latency_p99_s=float(np.percentile(lat, 99)),
          first_token_p50_s=float(np.percentile(ftl, 50)),
          first_token_p99_s=float(np.percentile(ftl, 99)),
-         prefill_calls=engine.prefill_calls, decode_calls=engine.decode_calls,
+         prefill_calls=prefill_calls, decode_calls=decode_calls,
          launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    prof = _serve_profile(cfg, params, ecfg)
-    emit("serve_profile", **prof)
+    prof = None if cfg.num_codebooks else _serve_profile(cfg, params, ecfg)
+    if prof:
+        emit("serve_profile", **prof)
     if cfg.name in SERVE_LONG:
         _serve_long(cfg, params, *SERVE_LONG[cfg.name])
-    _serve_xcheck(cfg, params, reqs[0].prompt)
-    # the timing phase reuses granite-moe's expert weights (2.4 GB); the
-    # rest of every model is freed before the next one is built
-    return dict(launches=launches, profile=prof,
-                moe=params["layers"]["moe"] if cfg.num_experts else None)
+    patches = prompt = None
+    if cfg.num_patches:
+        patches, prompt = _serve_patches(cfg, params)
+    if prompt is None:
+        prompt = reqs[0].prompt
+    _serve_xcheck(cfg, params, prompt, patches)
+    res = dict(launches=launches, profile=prof)
+    if cfg.num_experts:
+        moe = params["layers"]["moe"]
+        if cfg.mla:
+            # deepseek's experts are 22.6 GB: timed here, on its own weights
+            res["moe_timing"] = _moe_deepseek_timing(moe)
+        else:
+            # the timing phase reuses granite-moe's expert weights (2.4 GB)
+            res["moe"] = moe
+    emit("serve_peak", arch=cfg.name, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # the rest of every model is freed before the next one is built
+    return res
 
 
 #: the train phase: launch/train.py's default arch and traffic (batch 8,
@@ -1892,17 +2101,22 @@ def _sdpa(q, k, v, mask):
 
 def device_ms(fn, iters=20):
     """Device milliseconds per call: the summed duration of every CUDA
-    kernel ``iters`` calls launch, under torch.profiler."""
+    kernel ``iters`` calls launch, under torch.profiler.  A window in which
+    the profiler records no kernel at all (2 of ~30 windows in one run)
+    is taken once more; None if that one records none either."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    n, _busy, by_name = _device_kernels(prof)
-    return sum(v[1] for v in by_name.values()) / iters / 1e3 if n else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        n, _busy, by_name = _device_kernels(prof)
+        if n:
+            return sum(v[1] for v in by_name.values()) / iters / 1e3
+    return None
 
 
 #: the flash timing rows: granite-moe's decode and prefill (D = 64, the
@@ -1915,6 +2129,14 @@ FLASH_TIMING = [(c, None) for c in FLASH_CASES[:2]] + [
     (("rg_prefill_d256", 1, 16, 1, 16, 16, 256, 0, 16, 2048, 0.0), None),
     (("rg_decode_d256_ring2048", 4, 16, 1, 1, 2048, 256, 3000, 2048, 2048, 0.0), 3000),
     (("rg_prefill_d256_L2048", 1, 16, 1, 2048, 2048, 256, 0, 2048, 2048, 0.0), None),
+    # the widths of the last six archs' serve paths: stablelm (D = 160),
+    # the MLA prefill (D = 192, 128 heads), phi-3-vision (D = 96) decoding
+    # and its patch prefill
+    (("stablelm_prefill_d160", 1, 32, 8, 16, 16, 160, 0, 16, 0, 0.0), None),
+    (("stablelm_decode_d160", 4, 32, 8, 1, 128, 160, 23, 24, 0, 0.0), None),
+    (("mla_prefill_d192", 1, 128, 128, 16, 16, 192, 0, 16, 0, 0.0), None),
+    (("phi3v_decode_d96", 4, 32, 32, 1, 128, 96, 23, 24, 0, 0.0), None),
+    (("phi3v_patch_prefill_d96", 1, 32, 32, 592, 592, 96, 0, 592, 0, 0.0), None),
 ]
 
 
@@ -2136,7 +2358,55 @@ def _moe_baseline(path):
     return run
 
 
-def _moe_timing(moe, launches, errs, baseline=None):
+def _moe_deepseek_timing(moe):
+    """``moe_gmm`` at deepseek-v2's serve shape (E = 160, C = 8, D = 5120,
+    F = 1536) on its own expert weights, one MoE layer after another
+    (7.55 GB each, cold in L2 at every call): held to TOL_MOE_MODEL against
+    the plain version and the float64 oracle on layer 0, then kernel, plain
+    version, a plain read of the same weights, and the bound."""
+    E, D, Fd = moe["wg"].shape[1:]
+    C = max(8, int(1.25 * 6 * SERVE["batch"] / E))       # dispatch's capacity at a decode step
+    L = moe["wg"].shape[0]
+    x = _randn((E, C, D), torch.bfloat16, seed=911)
+    w = (moe["wg"][0], moe["wu"][0], moe["wd"][0])
+    got = MG.moe_gmm(x, *w)
+    readings = {"kernel_vs_plain": _moe_readings(got, MG.moe_gmm_plain(x, *w)),
+                "kernel_vs_f64": _moe_readings(got, MG.moe_gmm_oracle64(x, *w))}
+    del got
+    bad = {k: r["n_out_band"] for k, r in readings.items() if r["n_out_band"]}
+    check(not bad, f"moe_gmm at deepseek's shape: elements outside TOL_MOE_MODEL {bad}")
+    it = {"i": 0}
+
+    def cycle(fn):
+        def call():
+            i = it["i"] = (it["i"] + 1) % L
+            return fn(x, moe["wg"][i], moe["wu"][i], moe["wd"][i])
+        return call
+
+    def read():
+        i = it["i"] = (it["i"] + 1) % L
+        return [moe[k][i].sum() for k in ("wg", "wu", "wd")]
+
+    ms = cuda_ms(cycle(MG.moe_gmm), iters=30, warmup=3)
+    plain_ms = cuda_ms(cycle(MG.moe_gmm_plain), iters=6, warmup=2)
+    ms2 = cuda_ms(cycle(MG.moe_gmm), iters=30, warmup=3)
+    dev = device_ms(cycle(MG.moe_gmm), iters=6)
+    rd = device_ms(read, iters=6)
+    nbytes = 2 * (2 * E * C * D + 3 * E * D * Fd)    # x, out; wg, wu, wd
+    nops = 2 * E * C * D * Fd * 3
+    bound_ms, by = _bound(nbytes, nops, BF16_OPS_PER_S)
+    wbytes = 2 * 3 * E * D * Fd
+    row = dict(ms=min(ms, ms2), ms_runs=[ms, ms2], device_ms=dev, plain_ms=plain_ms,
+               library_ms=None, bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=nops,
+               weight_tb_per_s=wbytes / (dev * 1e-3) / 1e12 if dev else None,
+               read_weights_device_ms=rd,
+               read_weights_tb_per_s=wbytes / (rd * 1e-3) / 1e12 if rd else None)
+    emit("timing", name="moe_gmm", case="deepseek_serve", dtype="bfloat16", x=[E, C, D],
+         F=int(Fd), layers_cycled=L, readings=readings, tol_model=TOL_MOE_MODEL, **row)
+    return row
+
+
+def _moe_timing(moe, launches, errs, baseline=None, deepseek=None):
     """At the serve shape (C = 8) and a 1024-token prefill's (C = 320), on
     the model's own expert weights, one layer after another (2.4 GB in
     all, so every call finds its weights cold in L2, as the serve path
@@ -2161,9 +2431,13 @@ def _moe_timing(moe, launches, errs, baseline=None):
         base = {}
         if baseline is not None:
             w = (moe["wg"][0], moe["wu"][0], moe["wd"][0])
-            base["vs_f64"] = _moe_readings(baseline(x, *w), MG.moe_gmm_oracle64(x, *w))
+            theirs = baseline(x, *w)
+            base["vs_f64"] = _moe_readings(theirs, MG.moe_gmm_oracle64(x, *w))
             check(base["vs_f64"]["n_out_band"] == 0,
                   f"baseline moe_gmm {case} vs the float64 oracle: {base['vs_f64']}")
+            # the panels of D change no sum: this build gives the baseline's bits
+            base["bit_equal"] = bool(torch.equal(MG.moe_gmm(x, *w), theirs))
+            check(base["bit_equal"], f"moe_gmm {case}: output differs from the baseline's")
             base["ms_runs"] = [cuda_ms(cycle(baseline), iters=240, warmup=24)]
         ms = cuda_ms(cycle(MG.moe_gmm), iters=240, warmup=24)
         plain_ms = cuda_ms(cycle(MG.moe_gmm_plain), iters=48, warmup=24)
@@ -2198,7 +2472,7 @@ def _moe_timing(moe, launches, errs, baseline=None):
             "launches": int(launches), "max_abs_err": max(errs["moe_gmm"]),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": None, "device_ms": d["device_ms"],
-            "prefill_c320": out["prefill_c320"]}
+            "prefill_c320": out["prefill_c320"], "deepseek_serve": deepseek}
 
 
 def _ssd_timing(launches, errs):
@@ -2515,8 +2789,9 @@ def phase_timing(problem, soa_launches, serve, errs, moe_baseline=None, train=No
         total = {k: sum(n[k] for n in by_arch.values()) for k in COUNTED}
         rows = [_flash_timing(total["flash_attention"], errs)]
         if serve.get("granite_moe_1b"):
+            deepseek = serve.get("deepseek_v2_236b", {}).get("moe_timing")
             rows.append(_moe_timing(serve["granite_moe_1b"]["moe"], total["moe_gmm"], errs,
-                                    _moe_baseline(moe_baseline)))
+                                    _moe_baseline(moe_baseline), deepseek))
         if serve.get("mamba2_2p7b"):
             rows.append(_ssd_timing(total["ssd_intra_chunk"], errs))
         if serve.get("recurrentgemma_9b"):

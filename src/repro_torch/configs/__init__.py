@@ -1,15 +1,12 @@
-"""Architecture configs (one module per ported arch).
-
-The reference lists ten archs; the port carries the configs whose
-serving path it runs.  ``get_config`` on any other arch raises
-``NotImplementedError`` naming, by title, the ROADMAP item that brings
-it.
-"""
+"""Architecture configs (one module per arch, all ten of the reference's)
+and the shape cells."""
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from ..models.config import ModelConfig
+from .shapes import SHAPES, ShapeSpec, runnable_cells
 
 ARCHS = (
     "mamba2_2p7b",
@@ -24,19 +21,8 @@ ARCHS = (
     "musicgen_large",
 )
 
-#: archs whose config and model path the port carries
-PORTED = ("granite_moe_1b", "phi4_mini_3p8b", "mamba2_2p7b", "recurrentgemma_9b")
-
-#: what each other arch needs; all of it is the ROADMAP item
-#: "the rest of models/* and configs/*"
-UNPORTED = {
-    "gemma2_27b": "sliding-window and softcap layers",
-    "gemma3_4b": "sliding-window layers, qk-norm, local rope base",
-    "stablelm_12b": "dense stacks beyond phi4-mini",
-    "deepseek_v2_236b": "MLA attention, shared experts",
-    "phi3_vision_4p2b": "patch-embedding frontend",
-    "musicgen_large": "codebook frontend",
-}
+#: archs whose config and model path the port carries: every one
+PORTED = ARCHS
 
 _ALIAS = {
     "mamba2-2.7b": "mamba2_2p7b",
@@ -54,15 +40,22 @@ _ALIAS = {
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
     mod_name = _ALIAS.get(name, name.replace("-", "_").replace(".", "p"))
-    if mod_name in UNPORTED:
-        raise NotImplementedError(
-            f"{mod_name} is not ported to the PyTorch package yet: "
-            f"ROADMAP: the rest of models/* and configs/* ({UNPORTED[mod_name]})"
-        )
-    if mod_name not in PORTED:
+    if mod_name not in ARCHS:
         raise ValueError(f"unknown arch {name!r}; known: {', '.join(ARCHS)}")
     mod = importlib.import_module(f"{__name__}.{mod_name}")
     return mod.reduced() if reduced else mod.CONFIG
 
 
-__all__ = ["ARCHS", "PORTED", "get_config"]
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCHS}
+
+
+__all__ = [
+    "ARCHS",
+    "PORTED",
+    "SHAPES",
+    "ShapeSpec",
+    "get_config",
+    "all_configs",
+    "runnable_cells",
+]

@@ -1,9 +1,12 @@
 """Serving driver: ``python -m repro_torch.launch.serve --arch <id>``.
 
 Runs the continuous-batching engine on the reduced config with a burst
-of synthetic requests, on the card unless ``--device cpu`` is given.
-``chip_smoke.py`` drives the same engine at full width for granite-moe-1b,
-mamba2-2.7b and recurrentgemma-9b.
+of synthetic requests, on the card unless ``--device cpu`` is given.  It
+takes every arch; musicgen fails at its first prefill, as the reference's
+launcher does, since the engine feeds (B, S) tokens and the codebook
+frontend takes (B, K, S) (ROADMAP C14).  ``chip_smoke.py`` drives the same
+engine at full width for every other arch (deepseek-v2 at depth 4) and
+musicgen through ``LM.prefill`` / ``decode_step``.
 """
 from __future__ import annotations
 

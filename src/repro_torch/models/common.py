@@ -28,6 +28,9 @@ __all__ = [
 
 NEG_INF = -1e30
 _IMAX = torch.iinfo(torch.int32).max
+#: most numbers ``dense_init`` draws at once for a stack (8 GiB in float32;
+#: more than any stack of the archs ported before gemma2 and stablelm)
+_DRAW_MAX = 1 << 31
 
 
 # ---------------------------------------------------------------------------
@@ -39,13 +42,21 @@ def dense_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
     """N(0, 1) * scale (default ``1/sqrt(fan_in)``, fan_in = ``shape[0]``)
     drawn in float32 from ``gen`` and cast to ``dtype``.  ``stack > 0``
     draws ``stack`` independent layers as one ``(stack, *shape)`` tensor.
-    On the ``meta`` device only the shape and dtype are made."""
+    On the ``meta`` device only the shape and dtype are made.  A stack
+    whose float32 draw would pass ``_DRAW_MAX`` numbers is drawn one layer
+    at a time, so the float32 draw of a large model (gemma2-27b's MLP
+    stack is 31 GB in float32) never exists whole."""
     fan_in = shape[0] if len(shape) > 1 else 1
     s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     full = ((stack,) if stack else ()) + tuple(shape)
     dev = torch.device(device)
     if dev.type == "meta":
         return torch.empty(full, dtype=dtype, device=dev)
+    if stack and math.prod(full) > _DRAW_MAX:
+        out = torch.empty(full, dtype=dtype, device=dev)
+        for i in range(stack):
+            out[i] = dense_init(gen, shape, dtype, scale, device=device)
+        return out
     x = torch.randn(full, generator=gen, dtype=torch.float32, device=gen.device)
     return (x * s).to(dtype).to(dev)
 

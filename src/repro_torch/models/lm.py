@@ -1,6 +1,9 @@
-"""Decoder LM for the dense, MoE, Mamba-2 and RG-LRU hybrid stacks: ``init_params``
-and ``LM`` with ``embed`` / ``backbone`` / ``loss`` / ``logits_last`` /
-``init_cache`` / ``prefill`` / ``decode_step``, and ``train_step_fn``.
+"""Decoder LM for every arch of the zoo: the dense and MoE attention
+stacks (GQA or MLA attention, leading dense layers, shared experts), the
+Mamba-2 and RG-LRU hybrid stacks, and the codebook (musicgen) and
+patch-embedding (phi-3-vision) frontends: ``init_params`` and ``LM`` with
+``embed`` / ``backbone`` / ``loss`` / ``logits_last`` / ``init_cache`` /
+``prefill`` / ``decode_step``, and ``train_step_fn``.
 
 Parameters are a nested dict of *stacked* per-layer tensors ``(L,
 ...)``, the reference's layout, so a parameter tree converts leaf for
@@ -11,13 +14,14 @@ written in place, one layer view at a time.
 Training (``loss``, ``backbone(train=True)``) runs the dense stack: the
 layers run under ``torch.utils.checkpoint`` when ``cfg.remat`` (the
 reference's ``jax.checkpoint``), in groups of ~sqrt(L) as well when
-``sqrt_remat`` is set (its ``_grouped_scan``).
-
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item by title: MLA and leading dense layers, the codebook and patch
-frontends ("the rest of models/* and configs/*"), and training the MoE,
-SSM and hybrid stacks, whose kernels have no backward yet
+``sqrt_remat`` is set (its ``_grouped_scan``).  Training the MoE, SSM and
+hybrid stacks, whose kernels have no backward yet, raises
+``NotImplementedError`` naming its ROADMAP item by title
 (``check_trainable``).
+
+Modality frontends are stubs, as in the reference: phi-3-vision takes
+precomputed patch embeddings put in front of the tokens; musicgen takes
+``(B, K, S)`` codebook tokens (K embeddings summed, K output heads).
 """
 from __future__ import annotations
 
@@ -34,29 +38,11 @@ from .attention import attn_apply, attn_init
 from .common import chunked_xent, dense_init, gated_mlp, gated_mlp_init, rms_norm
 from .config import ModelConfig
 from .mamba2 import init_ssm_state, mamba_apply, mamba_init
+from .mla import init_mla_cache, mla_apply, mla_init
 from .moe import moe_apply, moe_init
 from .rglru import init_lru_state, rglru_apply, rglru_init
 
-__all__ = ["LM", "init_params", "check_supported", "check_trainable", "train_step_fn"]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item, by title,
-    for a config whose stack the port does not carry yet."""
-    if cfg.mla:
-        what = "MLA attention, deepseek_v2_236b"
-    elif cfg.num_experts and (cfg.first_dense_layers or cfg.num_shared_experts):
-        what = "leading dense layers and shared experts, deepseek_v2_236b"
-    elif cfg.num_codebooks:
-        what = "codebook frontend, musicgen_large"
-    elif cfg.num_patches:
-        what = "patch-embedding frontend, phi3_vision_4p2b"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family} stack is not ported yet: "
-        f"ROADMAP: the rest of models/* and configs/* ({what})"
-    )
+__all__ = ["LM", "init_params", "check_trainable", "train_step_fn"]
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -65,7 +51,6 @@ def check_trainable(cfg: ModelConfig) -> None:
     whose kernels (``moe_gmm``, ``ssd_intra_chunk``, ``rglru_scan``) have
     no backward, so autograd would silently give their inputs no
     gradient."""
-    check_supported(cfg)
     if cfg.num_experts or cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} stack is not ported yet: "
@@ -126,16 +111,15 @@ def init_params(cfg: ModelConfig, *, device="cuda",
     ``device``).  Same tree, shapes, dtypes and scales as the
     reference's ``init_params``; other numbers, since the generators
     differ."""
-    check_supported(cfg)
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     d, L, dt = cfg.d_model, cfg.num_layers, cfg.torch_dtype
     # embed rows ~ N(0, 1/d): unit-variance inputs after the sqrt(d)
     # input scaling and O(1) logits through the tied output head
+    emb_shape = ((cfg.num_codebooks,) if cfg.num_codebooks else ()) + (cfg.vocab_size, d)
     params: Dict[str, Any] = {
-        "embed": dense_init(generator, (cfg.vocab_size, d), dt, scale=d ** -0.5,
-                            device=dev),
+        "embed": dense_init(generator, emb_shape, dt, scale=d ** -0.5, device=dev),
         "final_norm": torch.ones((d,), dtype=dt, device=dev),
     }
     if cfg.family == "ssm":
@@ -155,17 +139,30 @@ def init_params(cfg: ModelConfig, *, device="cuda",
                 "mlp": gated_mlp_init(generator, d, cfg.d_ff, dt, device=dev, stack=n),
             }
         return params
-    layers = {
-        "ln1": torch.ones((L, d), dtype=dt, device=dev),
-        "ln2": torch.ones((L, d), dtype=dt, device=dev),
-        "attn": attn_init(generator, cfg, device=dev, stack=L),
-    }
-    if cfg.num_experts:
-        layers["moe"] = moe_init(generator, cfg, device=dev, stack=L)
-    else:
-        layers["mlp"] = gated_mlp_init(generator, d, cfg.d_ff, dt, device=dev, stack=L)
-    params["layers"] = layers
+    attn = mla_init if cfg.mla else attn_init
+
+    def block(n, moe):
+        layers = {
+            "ln1": torch.ones((n, d), dtype=dt, device=dev),
+            "ln2": torch.ones((n, d), dtype=dt, device=dev),
+            "attn": attn(generator, cfg, device=dev, stack=n),
+        }
+        if moe:
+            layers["moe"] = moe_init(generator, cfg, device=dev, stack=n)
+        else:
+            layers["mlp"] = gated_mlp_init(generator, d, cfg.d_ff, dt, device=dev, stack=n)
+        return layers
+
+    n_dense = _n_dense(cfg)
+    if n_dense:
+        params["dense_layers"] = block(n_dense, moe=False)
+    params["layers"] = block(L - n_dense, moe=bool(cfg.num_experts))
     return params
+
+
+def _n_dense(cfg: ModelConfig) -> int:
+    """Leading dense layers before the MoE layers (deepseek-v2's first)."""
+    return cfg.first_dense_layers if cfg.num_experts else 0
 
 
 # ---------------------------------------------------------------------------
@@ -175,12 +172,27 @@ def init_params(cfg: ModelConfig, *, device="cuda",
 class LM:
     cfg: ModelConfig
 
-    def __post_init__(self):
-        check_supported(self.cfg)
-
     # -- embedding front ----------------------------------------------------
     def embed(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return params["embed"][batch["tokens"]] * math.sqrt(self.cfg.d_model)
+        """Token embeddings times sqrt(d): codebook tokens ``(B, K, S)``
+        sum their K embeddings; ``patch_embeds`` (B, P, D), when the
+        config has patches and the batch holds them, go in front."""
+        cfg = self.cfg
+        emb, toks = params["embed"], batch["tokens"]
+        scale = math.sqrt(cfg.d_model)
+        if cfg.num_codebooks:
+            if toks.dim() != 3 or toks.shape[1] != cfg.num_codebooks:
+                # the serving engine feeds (B, S) tokens (ROADMAP C14)
+                raise ValueError(
+                    f"{cfg.name} takes (B, {cfg.num_codebooks}, S) codebook tokens, "
+                    f"got {tuple(toks.shape)}"
+                )
+            x = sum(emb[k][toks[:, k]] for k in range(cfg.num_codebooks)) * scale
+        else:
+            x = emb[toks] * scale
+        if cfg.num_patches and "patch_embeds" in batch:
+            x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+        return x
 
     # -- backbone ------------------------------------------------------------
     def backbone(self, params, x: torch.Tensor, *, positions: torch.Tensor,
@@ -201,23 +213,36 @@ class LM:
         return rms_norm(x, params["final_norm"]), cache
 
     def _attn_stack(self, params, x, positions, cache, cache_pos, train=False):
+        """The leading dense layers (cache entries ``k0`` / ``v0``), then
+        the stacked layers (``k`` / ``v``, or ``c_kv`` / ``k_rope`` for
+        MLA)."""
         cfg = self.cfg
         windows, thetas = _layer_windows(cfg), _layer_thetas(cfg)
-        moe = bool(cfg.num_experts)
-        layers = _unstack(params["layers"], cfg.num_layers)
+        n_dense = _n_dense(cfg)
+        layers = (_unstack(params["dense_layers"], n_dense) if n_dense else []) + \
+            _unstack(params["layers"], cfg.num_layers - n_dense)
+        kk, vv = ("c_kv", "k_rope") if cfg.mla else ("k", "v")
 
         def block(x, i):
             layer = layers[i]
+            c = None
+            if cache is not None:
+                c = ((cache["k0"][i], cache["v0"][i]) if i < n_dense
+                     else (cache[kk][i - n_dense], cache[vv][i - n_dense]))
             h = rms_norm(x, layer["ln1"])
-            out, _ = attn_apply(
-                layer["attn"], h, cfg, positions=positions,
-                window=int(windows[i]), theta=float(thetas[i]),
-                cache=(cache["k"][i], cache["v"][i]) if cache is not None else None,
-                cache_pos=cache_pos,
-            )
+            if cfg.mla:
+                out, _ = mla_apply(layer["attn"], h, cfg, positions=positions, cache=c,
+                                   cache_pos=cache_pos)
+            else:
+                out, _ = attn_apply(
+                    layer["attn"], h, cfg, positions=positions,
+                    window=int(windows[i]), theta=float(thetas[i]), cache=c,
+                    cache_pos=cache_pos,
+                )
             x = x + out
             h = rms_norm(x, layer["ln2"])
-            return x + (moe_apply(layer["moe"], h, cfg) if moe else gated_mlp(layer["mlp"], h))
+            return x + (moe_apply(layer["moe"], h, cfg) if "moe" in layer
+                        else gated_mlp(layer["mlp"], h))
 
         if train:
             return self._train_layers(block, x, cfg.num_layers), cache
@@ -306,19 +331,33 @@ class LM:
 
     # -- heads ---------------------------------------------------------------
     def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Mean next-token cross-entropy of a plain-token batch (``tokens``,
-        ``labels`` (B, S); a label of -1 carries no loss), the layers in
-        train mode."""
+        """Mean next-token cross-entropy (a label of -1 carries no loss),
+        the layers in train mode.  ``labels`` are (B, S), or (B, K, S) for
+        codebooks, whose K losses are averaged; patch positions carry no
+        loss."""
         cfg = self.cfg
         x = self.embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         x, _ = self.backbone(params, x, positions=positions, train=True)
-        return chunked_xent(x, params["embed"], batch["labels"],
-                            softcap=cfg.final_logit_softcap)
+        labels = batch["labels"]
+        if cfg.num_codebooks:
+            losses = [chunked_xent(x, params["embed"][k], labels[:, k],
+                                   softcap=cfg.final_logit_softcap)
+                      for k in range(cfg.num_codebooks)]
+            return sum(losses) / cfg.num_codebooks
+        if cfg.num_patches and "patch_embeds" in batch:
+            pad = torch.full((labels.shape[0], cfg.num_patches), -1, dtype=labels.dtype,
+                             device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        return chunked_xent(x, params["embed"], labels, softcap=cfg.final_logit_softcap)
 
     def logits_last(self, params, x_last: torch.Tensor) -> torch.Tensor:
-        """(B, D) -> (B, V)."""
-        out = torch.matmul(x_last, params["embed"].t())
+        """(B, D) -> (B, V), or (B, K, V) for codebooks."""
+        emb = params["embed"]
+        if self.cfg.num_codebooks:
+            out = torch.einsum("bd,kvd->bkv", x_last, emb)
+        else:
+            out = torch.matmul(x_last, emb.t())
         cap = self.cfg.final_logit_softcap
         if cap:
             out = cap * torch.tanh(out / cap)
@@ -337,7 +376,16 @@ class LM:
             return {**init_lru_state(cfg, batch, n_lru, dev),
                     "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
                     "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)}
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        n_dense = _n_dense(cfg)
+        if cfg.mla:
+            cache = init_mla_cache(cfg, batch, max_len, cfg.num_layers - n_dense, dev)
+            if n_dense:
+                # the leading dense layers use MLA too: their latent and
+                # rope key, under the reference's names
+                dense = init_mla_cache(cfg, batch, max_len, n_dense, dev)
+                cache["k0"], cache["v0"] = dense["c_kv"], dense["k_rope"]
+            return cache
+        shape = (cfg.num_layers - n_dense, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
         return {
             "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts layer (granite-moe), single shard.
+"""Mixture-of-Experts layer (granite-moe, deepseek-v2), single shard.
 
 Token-choice top-k routing with capacity buckets, kept bit for bit from
 the reference: float32 router, softmax, top-k, gate renormalisation,
@@ -6,12 +6,13 @@ the reference: float32 router, softmax, top-k, gate renormalisation,
 expert by cumulative sum, one scatter per choice column, float32
 combine.  The bucket FFN goes through
 :func:`repro_torch.kernels.ops.moe_gmm`: the CUDA kernel on the card,
-the plain version on the CPU.
+the plain version on the CPU.  Shared experts (deepseek-v2) are one
+gated MLP of width ``moe_d_ff * num_shared_experts`` that every token
+runs, added after the combine.
 
 Expert parallelism (the reference's ``shard_map`` over the 'model' mesh
 axis) comes with ``distribution/`` (ROADMAP: distribution/* and
-launch/{mesh,dryrun}.py); shared experts come with deepseek-v2 (ROADMAP:
-the rest of models/* and configs/*).
+launch/{mesh,dryrun}.py).
 """
 from __future__ import annotations
 
@@ -20,27 +21,25 @@ from typing import Dict, Tuple
 import torch
 
 from ..kernels import ops
-from .common import dense_init
+from .common import dense_init, gated_mlp, gated_mlp_init
 from .config import ModelConfig
 
 __all__ = ["moe_init", "route", "dispatch", "moe_apply"]
 
 
 def moe_init(gen, cfg: ModelConfig, *, device="cpu", stack: int = 0) -> Dict:
-    if cfg.num_shared_experts:
-        raise NotImplementedError(
-            "shared experts are not ported yet: ROADMAP: the rest of "
-            "models/* and configs/* (deepseek_v2_236b)"
-        )
     d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     dt = cfg.torch_dtype
     kw = dict(device=device, stack=stack)
-    return {
+    p = {
         "router": dense_init(gen, (d, e), torch.float32, scale=0.02, **kw),
         "wg": dense_init(gen, (e, d, f), dt, **kw),
         "wu": dense_init(gen, (e, d, f), dt, **kw),
         "wd": dense_init(gen, (e, f, d), dt, **kw),
     }
+    if cfg.num_shared_experts:
+        p["shared"] = gated_mlp_init(gen, d, f * cfg.num_shared_experts, dt, **kw)
+    return p
 
 
 def route(router: torch.Tensor, tokens: torch.Tensor, k: int
@@ -96,4 +95,7 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     for j in range(k):
         g = torch.where(keep[:, j], gates[:, j], torch.zeros_like(gates[:, j]))
         out = out + flat_out[slot[:, j]].float() * g[:, None]
-    return out.to(x.dtype).reshape(b, s, d)
+    out = out.to(x.dtype).reshape(b, s, d)
+    if "shared" in params:
+        out = out + gated_mlp(params["shared"], x)
+    return out

@@ -2,7 +2,8 @@
 allocator, flash attention,
 MoE grouped matmul, SSD intra-chunk, RG-LRU scan) against their plain
 versions, the torch sampler,
-round loop, LM and serving engine on CUDA against their CPU runs.
+round loop, LM (every arch's stack and frontend, reduced) and serving
+engine on CUDA against their CPU runs.
 Every test here needs a CUDA device and skips without one.
 
 This file imports only the port (no JAX), so it also runs on a machine
@@ -278,6 +279,14 @@ def _randn(shape, dtype, seed, scale=1.0):
     (2, 16, 1, 1, 1000, 256, 900, 901, 0, 0.0),   # g = 16, D = 256, many splits
     (1, 8, 2, 40, 300, 128, 200, 240, 64, 0.0),   # g = 4 prefill at an offset
     (1, 16, 1, 300, 300, 256, 0, 300, 2048, 0.0),  # long MQA prefill, no split
+    # the widths the kernel pads: phi-3-vision's D = 96 (to 128), stablelm's
+    # D = 160 and the MLA prefill's D = 192 (to 256)
+    (1, 32, 32, 40, 128, 96, 0, 40, 0, 0.0),      # phi-3-vision prefill
+    (4, 32, 32, 1, 128, 96, 23, 24, 0, 0.0),      # phi-3-vision decode
+    (1, 32, 8, 16, 128, 160, 0, 16, 0, 0.0),      # stablelm prefill
+    (4, 32, 8, 1, 128, 160, 23, 24, 0, 0.0),      # stablelm decode
+    (1, 128, 128, 16, 16, 192, 0, 16, 0, 0.0),    # MLA prefill
+    (2, 32, 16, 1, 4624, 128, 4610, 4611, 4096, 50.0),  # gemma2 past its window
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Lq, Lk, D, qo, kvl, w, cap):
     q = _randn((B, Hq, Lq, D), dtype, 1)
@@ -301,6 +310,10 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Lq, Lk, D
     (32, 1, 1024, 512, None),       # C in {1, 10, 320} at the serve width
     (32, 10, 1024, 512, None),
     (32, 320, 1024, 512, None),     # a 1024-token prefill's buckets
+    # deepseek-v2's d_model: more than one panel of D
+    (16, 8, 5120, 1536, None),      # its serve shape at 16 of its 160 experts
+    (4, 20, 5120, 1536, None),      # 32 rows a pass
+    (2, 8, 5120, 200, None),        # F no multiple of 64
 ])
 def test_moe_gmm_kernel_matches_plain(cuda, dtype, E, C, D, F, scale):
     x = _randn((E, C, D), dtype, 4)
@@ -489,7 +502,8 @@ def _to(tree, device):
 
 
 @pytest.mark.parametrize("arch", ["granite_moe_1b", "phi4_mini_3p8b", "mamba2_2p7b",
-                                  "recurrentgemma_9b"])
+                                  "recurrentgemma_9b", "gemma2_27b", "gemma3_4b",
+                                  "stablelm_12b", "deepseek_v2_236b"])
 def test_lm_on_cuda_matches_cpu(cuda, arch):
     cfg = get_config(arch, reduced=True)
     p_cpu = init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
@@ -504,6 +518,7 @@ def test_lm_on_cuda_matches_cpu(cuda, arch):
     b, c_gpu = m.prefill(p_gpu, {"tokens": toks[:, :8].cuda()}, c_gpu)
     # one launch per layer that runs the kernel (the hybrid's 4 of 5 are LRU)
     assert counted.launches - n0 == (4 if cfg.family == "hybrid" else cfg.num_layers)
+
     torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
     for pos in (8, 9):
         a, c_cpu = m.decode_step(p_cpu, {"tokens": toks[:, pos:pos + 1]}, c_cpu, pos)
@@ -511,6 +526,32 @@ def test_lm_on_cuda_matches_cpu(cuda, arch):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
     for key in c_cpu:
         torch.testing.assert_close(c_gpu[key].cpu(), c_cpu[key], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["phi3_vision_4p2b", "musicgen_large"])
+def test_frontends_on_cuda_match_cpu(cuda, arch):
+    """The patch prefill (then a decode step) and the codebook path on the
+    card against the CPU, on the same reduced weights."""
+    cfg = get_config(arch, reduced=True)
+    p_cpu = init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    p_gpu = _to(p_cpu, "cuda")
+    m = LM(cfg)
+    rng = np.random.default_rng(1)
+    shape = (2, cfg.num_codebooks, 9) if cfg.num_codebooks else (2, 9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+    batch = {"tokens": toks[..., :8]}
+    if cfg.num_patches:
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.num_patches, cfg.d_model)).astype(np.float32))
+    n = 8 + cfg.num_patches
+    c_cpu, c_gpu = m.init_cache(2, n + 4, "cpu"), m.init_cache(2, n + 4, "cuda")
+    a, c_cpu = m.prefill(p_cpu, batch, c_cpu)
+    b, c_gpu = m.prefill(p_gpu, {k: v.cuda() for k, v in batch.items()}, c_gpu)
+    torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+    step = {"tokens": toks[..., 8:9]}
+    a, c_cpu = m.decode_step(p_cpu, step, c_cpu, n)
+    b, c_gpu = m.decode_step(p_gpu, {"tokens": step["tokens"].cuda()}, c_gpu, n)
+    torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
 
 
 def test_serving_engine_on_cuda_matches_cpu_tokens(cuda):

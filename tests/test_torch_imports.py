@@ -24,6 +24,9 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.kernels, repro_torch.kernels.ops, repro_torch.kernels.ref\n"
         "import repro_torch.kernels.ssd, repro_torch.kernels.rglru\n"
         "import repro_torch.models.mamba2, repro_torch.models.rglru\n"
+        "import repro_torch.models.mla, repro_torch.models.moe, repro_torch.configs.shapes\n"
+        "from repro_torch.configs import ARCHS, get_config\n"
+        "for a in ARCHS: get_config(a)\n"
         "import repro_torch.serving, repro_torch.serving.colocated, repro_torch.launch.serve\n"
         "import repro_torch.obs, repro_torch.obs.schema, repro_torch.sweeps\n"
         "import repro_torch.sweeps.service, repro_torch.sweeps.worker\n"
@@ -194,8 +197,9 @@ def test_serving_engine_without_device_raises_when_cuda_absent(no_cuda):
 
 #: items the port has carried since these cases were written (B3: mamba2
 #: and the SSD kernel, B4: recurrentgemma, the RG-LRU kernel and the ring
-#: cache); their cases now hold that the same calls succeed
-PORTED_ITEMS = ("B3", "B4")
+#: cache, A9: the rest of models/* and configs/*); their cases now hold
+#: that the same calls succeed
+PORTED_ITEMS = ("B3", "B4", "A9")
 
 #: the items' numbers when these cases were written, and the titles the
 #: messages name them by now (numbers move when the ROADMAP is redrawn)
@@ -258,7 +262,8 @@ def test_unported_model_branches_name_their_roadmap_item():
         (dict(num_codebooks=4), "A9"), (dict(num_patches=16), "A9"),
     ]:
         if item in PORTED_ITEMS:
-            assert LM(dataclasses.replace(base, **change)).cfg.family == change["family"]
+            cfg = LM(dataclasses.replace(base, **change)).cfg
+            assert all(getattr(cfg, k) == v for k, v in change.items())
             continue
         with pytest.raises(NotImplementedError, match=ITEM_TITLES[item]):
             LM(dataclasses.replace(base, **change))
