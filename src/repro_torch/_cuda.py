@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point.
-It is compiled by ``nvcc`` for ``sm_90a`` into a shared library at
-first use and loaded with ``ctypes``.  The library lands in
-``build/repro_torch/`` beside ``src/`` (or ``$REPRO_TORCH_BUILD_DIR``),
-named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused.
+Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point
+(it may include the shared ``csrc/*.cuh`` headers).  It is compiled by
+``nvcc`` for ``sm_90a`` into a shared library at first use and loaded
+with ``ctypes``.  The library lands in ``build/repro_torch/`` beside
+``src/`` (or ``$REPRO_TORCH_BUILD_DIR``), named by a hash of the source,
+the headers and the flags, so an edited source is rebuilt and an
+unchanged one is reused.
 
 A missing ``nvcc`` or a failed build raises: there is no fallback.
 """
@@ -61,8 +62,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = _SRC_DIR / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(_SRC_DIR.glob("*.cuh")))
     key = hashlib.sha1(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + "\0".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return src, _BUILD_DIR / f"lib{name}-{key}.so"
 

@@ -11,10 +11,13 @@ Kernels:
   caches' key positions; head dim up to 256), with its backward
   (``flash_attention_bwd``, ``FlashAttentionFn``) for training.
 * ``moe_gmm`` — the MoE expert FFN over capacity buckets, gate-up-down
-  fused so the hidden block stays on chip.
+  fused so the hidden block stays on chip, with its backward
+  (``moe_gmm_bwd``, ``MoeGmmFn``).
 * ``ssd`` — Mamba-2's SSD intra-chunk part (``ops.ssd_chunked`` adds
-  the inter-chunk scan).
-* ``rglru`` — the RG-LRU gates and recurrence in one pass.
+  the inter-chunk scan), with its backward (``ssd_intra_chunk_bwd``,
+  ``SsdIntraChunkFn``).
+* ``rglru`` — the RG-LRU gates and recurrence in one pass, with its
+  backward (``rglru_scan_bwd``, ``RglruScanFn``).
 """
 from . import ops, ref
 

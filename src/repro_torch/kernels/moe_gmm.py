@@ -13,6 +13,11 @@ runs on the tensor cores, weights streamed through a cp.async ring; in
 float32 on the CUDA cores (no TF32).  Its float32 sums run in another
 order than ``torch.bmm``'s, so in bf16 an ``a`` near a rounding boundary
 may round the other way than the plain version's.
+
+The backward (``csrc/moe_gmm_bwd.cu``, :func:`moe_gmm_bwd`) recomputes
+``h``, ``u`` and ``a`` and returns ``(dx, dwg, dwu, dwd)`` in the inputs'
+dtype, every product a float32 sum over a fixed order;
+:class:`MoeGmmFn` wires forward and backward for autograd.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ import torch.nn.functional as F
 
 from .. import _cuda
 
-__all__ = ["moe_gmm", "moe_gmm_oracle64", "moe_gmm_plain"]
+__all__ = ["moe_gmm", "moe_gmm_oracle64", "moe_gmm_plain", "moe_gmm_bwd", "moe_gmm_bwd_plain",
+           "MoeGmmFn"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -35,14 +41,40 @@ _SIG = {
         ctypes.c_int, ctypes.c_void_p,
     ]),
 }
+_BWD_SIG = {
+    "moe_gmm_bwd": (ctypes.c_int, [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                    + [ctypes.c_void_p]),
+}
 
 
 def moe_gmm_plain(x, wg, wu, wd):
     """The plain version, with the kernel's dtype rules."""
-    h = torch.bmm(x.float(), wg.float())
-    u = torch.bmm(x.float(), wu.float())
+    acc = torch.promote_types(x.dtype, torch.float32)
+    h = torch.bmm(x.to(acc), wg.to(acc))
+    u = torch.bmm(x.to(acc), wu.to(acc))
     a = (F.silu(h) * u).to(wd.dtype)
-    return torch.bmm(a.float(), wd.float()).to(x.dtype)
+    return torch.bmm(a.to(acc), wd.to(acc)).to(x.dtype)
+
+
+def moe_gmm_bwd_plain(x, wg, wu, wd, dy):
+    """The backward's plain version, written out: ``h``, ``u`` and ``g =
+    dy wd^T`` recomputed in float32, ``a = cast(silu(h) u, wd.dtype)`` as the
+    forward forms it, ``dh = g u silu'(h)``, ``du = g silu(h)``; returns
+    ``(dx, dwg, dwu, dwd)`` in the inputs' dtypes."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, wgf, wuf, wdf, dyf = (t.to(acc) for t in (x, wg, wu, wd, dy))
+    h = torch.bmm(xf, wgf)
+    u = torch.bmm(xf, wuf)
+    g = torch.bmm(dyf, wdf.transpose(1, 2))
+    sig = torch.sigmoid(h)
+    sh = F.silu(h)
+    a = (sh * u).to(wd.dtype).to(acc)
+    dh = g * u * (sig * (1 + h * (1 - sig)))
+    du = g * sh
+    dx = torch.bmm(dh, wgf.transpose(1, 2)) + torch.bmm(du, wuf.transpose(1, 2))
+    xt = xf.transpose(1, 2)
+    return (dx.to(x.dtype), torch.bmm(xt, dh).to(wg.dtype), torch.bmm(xt, du).to(wu.dtype),
+            torch.bmm(a.transpose(1, 2), dyf).to(wd.dtype))
 
 
 def moe_gmm_oracle64(x, wg, wu, wd):
@@ -58,15 +90,15 @@ def moe_gmm_oracle64(x, wg, wu, wd):
     return torch.bmm(a.to(d), wd.to(d)).float().to(x.dtype)
 
 
-def _moe_gmm_cuda(x, wg, wu, wd):
-    """Launch ``csrc/moe_gmm.cu`` on the current stream."""
+def _check(x, wg, wu, wd, what="moe_gmm"):
+    """The kernels' operand rules; returns (E, C, D, F)."""
     if x.dtype not in _DTYPES or any(w.dtype != x.dtype for w in (wg, wu, wd)):
         raise TypeError(
-            f"moe_gmm takes float32 or bfloat16 x/wg/wu/wd of one dtype, got "
+            f"{what} takes float32 or bfloat16 x/wg/wu/wd of one dtype, got "
             f"{x.dtype} / {wg.dtype} / {wu.dtype} / {wd.dtype}"
         )
     if any(w.device != x.device for w in (wg, wu, wd)):
-        raise ValueError("moe_gmm: x and the weights lie on different devices")
+        raise ValueError(f"{what}: x and the weights lie on different devices")
     if x.dim() != 3 or wg.dim() != 3:
         raise ValueError(f"want x (E, C, D) and wg (E, D, F), got "
                          f"{tuple(x.shape)} / {tuple(wg.shape)}")
@@ -75,13 +107,19 @@ def _moe_gmm_cuda(x, wg, wu, wd):
     if (tuple(wg.shape) != (E, D, Fd) or tuple(wu.shape) != (E, D, Fd)
             or tuple(wd.shape) != (E, Fd, D)):
         raise ValueError(
-            f"moe_gmm shapes do not fit: x {tuple(x.shape)}, wg {tuple(wg.shape)}, "
+            f"{what} shapes do not fit: x {tuple(x.shape)}, wg {tuple(wg.shape)}, "
             f"wu {tuple(wu.shape)}, wd {tuple(wd.shape)}"
         )
     if E == 0 or C == 0 or D == 0 or Fd == 0:
-        raise ValueError(f"empty moe_gmm: E={E} C={C} D={D} F={Fd}")
+        raise ValueError(f"empty {what}: E={E} C={C} D={D} F={Fd}")
     if not all(w.is_contiguous() for w in (wg, wu, wd)):
-        raise ValueError("moe_gmm takes contiguous weights")
+        raise ValueError(f"{what} takes contiguous weights")
+    return E, C, D, Fd
+
+
+def _moe_gmm_cuda(x, wg, wu, wd):
+    """Launch ``csrc/moe_gmm.cu`` on the current stream."""
+    E, C, D, Fd = _check(x, wg, wu, wd)
     x = x.contiguous()
     lib = _cuda.load("moe_gmm", _SIG)
     out = torch.empty_like(x)
@@ -109,3 +147,59 @@ def moe_gmm(x, wg, wu, wd):
 
 
 moe_gmm.launches = 0
+
+
+def _moe_gmm_bwd_cuda(x, wg, wu, wd, dy):
+    """Launch ``csrc/moe_gmm_bwd.cu`` on the current stream."""
+    E, C, D, Fd = _check(x, wg, wu, wd, "moe_gmm_bwd")
+    if dy.dtype != x.dtype or tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
+        raise ValueError(f"moe_gmm_bwd: dy must be shaped, typed and placed as x "
+                         f"{tuple(x.shape)} {x.dtype}, got {tuple(dy.shape)} {dy.dtype}")
+    x, dy = x.contiguous(), dy.contiguous()
+    lib = _cuda.load("moe_gmm_bwd", _BWD_SIG)
+    dx, dwg, dwu, dwd = (torch.empty_like(t) for t in (x, wg, wu, wd))
+    a, dh, du = torch.empty((3, E, C, Fd), dtype=torch.float32, device=x.device)
+    err = lib.moe_gmm_bwd(
+        x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(),
+        a.data_ptr(), dh.data_ptr(), du.data_ptr(), E, C, D, Fd, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"moe_gmm_bwd launch failed: CUDA error {err}")
+    moe_gmm_bwd.launches += 1
+    return dx, dwg, dwu, dwd
+
+
+def moe_gmm_bwd(x, wg, wu, wd, dy):
+    """The expert FFN's backward on whatever device ``x`` lies on: the CUDA
+    kernel for a CUDA tensor (raising if it cannot build or launch), the
+    plain version for a CPU tensor.  Returns ``(dx, dwg, dwu, dwd)``.
+    ``moe_gmm_bwd.launches`` counts kernel launches."""
+    if x.device.type == "cuda":
+        return _moe_gmm_bwd_cuda(x, wg, wu, wd, dy)
+    if x.device.type != "cpu":
+        raise ValueError(f"moe_gmm_bwd: unsupported device {x.device}")
+    return moe_gmm_bwd_plain(x, wg, wu, wd, dy)
+
+
+moe_gmm_bwd.launches = 0
+
+
+class MoeGmmFn(torch.autograd.Function):
+    """Differentiable expert FFN: the forward is :func:`moe_gmm`, the
+    backward :func:`moe_gmm_bwd` (kernels for CUDA tensors, plain versions
+    for CPU tensors).  Only the four inputs are kept between the two.
+
+        out = MoeGmmFn.apply(x, wg, wu, wd)
+    """
+
+    @staticmethod
+    def forward(ctx, x, wg, wu, wd):
+        ctx.save_for_backward(x, wg, wu, wd)
+        return moe_gmm(x, wg, wu, wd)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wg, wu, wd = ctx.saved_tensors
+        return moe_gmm_bwd(x, wg, wu, wd, dy)

@@ -4,6 +4,12 @@ Each op dispatches on the device of its tensors: a CUDA tensor goes to
 the hand-written kernel (or the call raises), a CPU tensor to the plain
 torch version.  There is no switch between a plain path and a kernel
 path on the card, and no fallback from one to the other.
+
+``moe_gmm``, ``ssd_chunked`` and ``rglru_scan`` go through their autograd
+Functions (``MoeGmmFn``, ``SsdIntraChunkFn``, ``RglruScanFn``: the forward
+kernel, then the backward kernel) when grad is enabled and an input
+requires grad, the train path; otherwise they launch the forward kernel
+alone, so serving's launches and bits do not depend on autograd.
 """
 from __future__ import annotations
 
@@ -13,9 +19,11 @@ import torch
 import torch.nn.functional as F
 
 from .flash_attention import FlashAttentionFn, flash_attention
-from .moe_gmm import moe_gmm
-from .rglru import rglru_scan
-from .ssd import chunk_cumsum, ssd_intra_chunk
+from .moe_gmm import MoeGmmFn
+from .moe_gmm import moe_gmm as _moe_gmm
+from .rglru import RglruScanFn
+from .rglru import rglru_scan as _rglru_scan
+from .ssd import SsdIntraChunkFn, chunk_cumsum, ssd_intra_chunk
 
 __all__ = ["flash_attention", "flash_attention_grad", "moe_gmm", "ssd_chunked", "rglru_scan"]
 
@@ -27,6 +35,29 @@ def flash_attention_grad(q, k, v, *, causal=True, window=0, softcap=0.0, scale=N
     (:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`)."""
     return FlashAttentionFn.apply(q, k, v, causal, window, softcap, scale, q_offset,
                                   kv_offset, kv_valid_len)
+
+
+def _differentiated(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def moe_gmm(x, wg, wu, wd):
+    """The expert FFN (:func:`~repro_torch.kernels.moe_gmm.moe_gmm`), through
+    :class:`~repro_torch.kernels.moe_gmm.MoeGmmFn` when autograd records."""
+    if _differentiated(x, wg, wu, wd):
+        return MoeGmmFn.apply(x, wg, wu, wd)
+    return _moe_gmm(x, wg, wu, wd)
+
+
+def rglru_scan(x, r, i, lam, h0):
+    """The RG-LRU scan (:func:`~repro_torch.kernels.rglru.rglru_scan`),
+    through :class:`~repro_torch.kernels.rglru.RglruScanFn` when autograd
+    records."""
+    if _differentiated(x, r, i, lam, h0):
+        return RglruScanFn.apply(x, r, i, lam, h0)
+    return _rglru_scan(x, r, i, lam, h0)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128,
@@ -56,7 +87,9 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128,
     dtc = dt.reshape(b, nb, chunk, h)
     Bc = Bm.reshape(b, nb, chunk, n)
     Cc = Cm.reshape(b, nb, chunk, n)
-    y_intra, contrib, chunk_decay = ssd_intra_chunk(xc, dtc, A, Bc, Cc)
+    intra = (SsdIntraChunkFn.apply if _differentiated(xc, dtc, A, Bc, Cc)
+             else ssd_intra_chunk)
+    y_intra, contrib, chunk_decay = intra(xc, dtc, A, Bc, Cc)
     if nb == 1 and init_state is None:
         # one chunk from a zero state (every serve prefill): y_inter is
         # exactly 0 and the state exactly contrib (exp(acum) <= 1 is finite)

@@ -23,6 +23,11 @@ float32 to the CUDA cores.  x, B and C are read in place as token rows
 with a row stride (the model hands it slices of one projection) where the
 path can; the kernel allocates nothing and runs on PyTorch's current
 stream.
+
+The backward (``csrc/ssd_intra_chunk_bwd.cu``, :func:`ssd_intra_chunk_bwd`)
+takes the gradients of all three outputs (any may be None) and returns
+those of x, dt, A, B and C; :class:`SsdIntraChunkFn` wires forward and
+backward for autograd.
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ import torch
 
 from .. import _cuda
 
-__all__ = ["ssd_intra_chunk", "ssd_intra_chunk_plain", "chunk_cumsum", "ssd_plan", "SsdPlan"]
+__all__ = ["ssd_intra_chunk", "ssd_intra_chunk_plain", "chunk_cumsum", "ssd_plan", "SsdPlan",
+           "ssd_intra_chunk_bwd", "ssd_intra_chunk_bwd_plain", "SsdIntraChunkFn"]
 
 _F32 = torch.float32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,12 +58,19 @@ _SIG = {
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
     ]),
 }
+_BWD_SIG = {
+    "ssd_intra_chunk_bwd": (ctypes.c_int, [ctypes.c_void_p] * 14 + [ctypes.c_longlong]
+                            + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    "ssd_intra_chunk_bwd_scratch": (ctypes.c_longlong, [ctypes.c_longlong] + [ctypes.c_int] * 4),
+}
 
 
 def chunk_cumsum(dt, A):
     """``cumsum(dt * A)`` over each chunk (dim 2 of ``(B, nb, C, H)``),
-    summed in float64 and rounded once to float32, as the kernel forms it."""
-    return torch.cumsum(dt.double() * A.double(), dim=2).float()
+    summed in float64 and rounded once to float32, as the kernel forms it
+    (kept float64 for float64 inputs)."""
+    wide = torch.promote_types(dt.dtype, torch.float32)
+    return torch.cumsum(dt.double() * A.double(), dim=2).to(wide)
 
 
 def ssd_intra_chunk_plain(x, dt, A, Bm, Cm):
@@ -66,17 +79,77 @@ def ssd_intra_chunk_plain(x, dt, A, Bm, Cm):
     (B, nb, H, P, N), chunk_decay (B, nb, H)), float32.  The exp of a
     masked (s > t) entry is never taken: its exponent is set to -inf."""
     c = x.shape[2]
-    dt = dt.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    dt = dt.to(acc)
     ack = chunk_cumsum(dt, A)                                         # (B,nb,C,H)
     seg = ack[:, :, :, None, :] - ack[:, :, None, :, :]               # (B,nb,t,s,H)
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
     seg = seg.masked_fill(~causal[None, None, :, :, None], -float("inf"))
-    cb = torch.einsum("bktn,bksn->bkts", Cm.float(), Bm.float())      # shared by heads
+    cb = torch.einsum("bktn,bksn->bkts", Cm.to(acc), Bm.to(acc))      # shared by heads
     w = cb[..., None] * torch.exp(seg) * dt[:, :, None, :, :]
-    y = torch.einsum("bktsh,bkshp->bkthp", w, x.float())
+    y = torch.einsum("bktsh,bkshp->bkthp", w, x.to(acc))
     coef = dt * torch.exp(ack[:, :, -1:, :] - ack)                    # (B,nb,C,H)
-    contrib = torch.einsum("bksh,bksn,bkshp->bkhpn", coef, Bm.float(), x.float())
+    contrib = torch.einsum("bksh,bksn,bkshp->bkhpn", coef, Bm.to(acc), x.to(acc))
     return y, contrib, torch.exp(ack[:, :, -1, :])
+
+
+def ssd_intra_chunk_bwd_plain(x, dt, A, Bm, Cm, dy=None, dcontrib=None, ddecay=None):
+    """The backward's plain version, written out (a None gradient is zero):
+    with ``W[t,s] = CB[t,s] exp(acum_t - acum_s) dt_s`` (s <= t), ``dW = dy
+    x^T`` and ``q = dW CB exp(seg)`` per head,
+
+        dx     = W^T dy + coef G,          G = B dcontrib^T,  dcoef = sum_p x G
+        dCB    = sum_h dW exp(seg) dt_s,   dC = dCB B,  dB = dCB^T C + sum_h coef x dcontrib
+        dacum  = rowsum(q dt_s) - colsum(q dt_s) - dcoef coef
+                 (+ sum_s dcoef coef + ddecay decay at the last step)
+        ddt    = colsum(q) + dcoef exp(acum_last - acum) + A revcumsum(dacum)
+        dA     = sum revcumsum(dacum) dt
+
+    Returns ``(dx, ddt, dA, dB, dC)``: dx / dB / dC in x's dtype, ddt and dA
+    in float32 (float64 for float64 inputs)."""
+    c = x.shape[2]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf, Af, Bf, Cf = x.to(acc), dt.to(acc), A.to(acc), Bm.to(acc), Cm.to(acc)
+    ack = chunk_cumsum(dtf, Af)                                       # (B,nb,C,H)
+    seg = ack[:, :, :, None, :] - ack[:, :, None, :, :]               # (B,nb,t,s,H)
+    causal = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    lw = torch.exp(seg.masked_fill(~causal[None, None, :, :, None], -float("inf")))
+    cb = torch.einsum("bktn,bksn->bkts", Cf, Bf)
+    last = ack[:, :, -1:, :]
+    e_last = torch.exp(last - ack)
+    coef = dtf * e_last
+    dx = torch.zeros_like(xf)
+    d_ack = torch.zeros_like(ack)
+    ddt = torch.zeros_like(ack)
+    dcb = torch.zeros_like(cb)
+    dB = torch.zeros_like(Bf)
+    if dy is not None:
+        dyf = dy.to(acc)
+        w = cb[..., None] * lw * dtf[:, :, None, :, :]
+        dx = dx + torch.einsum("bktsh,bkthp->bkshp", w, dyf)
+        dw = torch.einsum("bkthp,bkshp->bktsh", dyf, xf)
+        q = dw * cb[..., None] * lw
+        qd = q * dtf[:, :, None, :, :]
+        d_ack = d_ack + qd.sum(dim=3) - qd.sum(dim=2)
+        ddt = ddt + q.sum(dim=2)
+        dcb = (dw * lw * dtf[:, :, None, :, :]).sum(dim=-1)
+        dB = dB + torch.einsum("bkts,bktn->bksn", dcb, Cf)
+    if dcontrib is not None:
+        dcf = dcontrib.to(acc)
+        g = torch.einsum("bksn,bkhpn->bkshp", Bf, dcf)
+        dx = dx + coef[..., None] * g
+        dcoef = (xf * g).sum(dim=-1)                                  # (B,nb,C,H)
+        dB = dB + torch.einsum("bksh,bkshp,bkhpn->bksn", coef, xf, dcf)
+        d_ack = d_ack - dcoef * coef
+        d_ack[:, :, -1] += (dcoef * coef).sum(dim=2)
+        ddt = ddt + dcoef * e_last
+    if ddecay is not None:
+        d_ack[:, :, -1] += ddecay.to(acc) * torch.exp(last[:, :, 0])
+    dC = torch.einsum("bkts,bksn->bktn", dcb, Bf)
+    dz = torch.flip(torch.cumsum(torch.flip(d_ack, (2,)), dim=2), (2,))
+    ddt = ddt + dz * Af
+    dA = (dz * dtf).sum(dim=(0, 1, 2))
+    return dx.to(x.dtype), ddt, dA, dB.to(Bm.dtype), dC.to(Cm.dtype)
 
 
 class SsdPlan(NamedTuple):
@@ -222,3 +295,101 @@ def ssd_intra_chunk(x, dt, A, Bm, Cm):
 
 
 ssd_intra_chunk.launches = 0
+
+
+_BWD_LIB = []
+
+
+def _ssd_intra_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy=None, dcontrib=None, ddecay=None):
+    """Launch ``csrc/ssd_intra_chunk_bwd.cu`` on the current stream (its
+    seven kernels: acum and CB, dCB per head group and its sum, dx, dB and
+    dC, the per-chunk finish, dA)."""
+    dtype = x.dtype
+    code = _DTYPES.get(dtype)
+    if code is None or Bm.dtype is not dtype or Cm.dtype is not dtype:
+        raise TypeError(f"ssd_intra_chunk_bwd takes float32 or bfloat16 x/Bm/Cm of one "
+                        f"dtype, got {dtype} / {Bm.dtype} / {Cm.dtype}")
+    if dt.dtype is not _F32 or A.dtype is not _F32:
+        raise TypeError(f"ssd_intra_chunk_bwd takes float32 dt and A, got {dt.dtype} / "
+                        f"{A.dtype}")
+    if x.dim() != 5:
+        raise ValueError(f"want x (B, nb, C, H, P), got {tuple(x.shape)}")
+    b, nb, c, h, p = x.shape
+    n = Bm.shape[-1]
+    want = {"dt": (dt, (b, nb, c, h)), "A": (A, (h,)), "Bm": (Bm, (b, nb, c, n)),
+            "Cm": (Cm, (b, nb, c, n)), "dy": (dy, (b, nb, c, h, p)),
+            "dcontrib": (dcontrib, (b, nb, h, p, n)), "ddecay": (ddecay, (b, nb, h))}
+    for name, (t, shape) in want.items():
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"ssd_intra_chunk_bwd: {name} {tuple(t.shape)}, want {shape} "
+                             f"for x {tuple(x.shape)}")
+        if t is not None and t.device != x.device:
+            raise ValueError("ssd_intra_chunk_bwd: inputs lie on different devices")
+    if b * nb * c * h * p * n == 0:
+        raise ValueError(f"empty ssd_intra_chunk_bwd: x {tuple(x.shape)}, N={n}")
+    x, dt, A, Bm, Cm = (t.contiguous() for t in (x, dt, A, Bm, Cm))
+    dy, dcontrib, ddecay = (None if t is None else t.float().contiguous()
+                            for t in (dy, dcontrib, ddecay))
+    if not _BWD_LIB:
+        _BWD_LIB.append(_cuda.load("ssd_intra_chunk_bwd", _BWD_SIG))
+    lib = _BWD_LIB[0]
+    bc = b * nb
+    f32 = dict(dtype=_F32, device=x.device)
+    scratch = torch.empty((lib.ssd_intra_chunk_bwd_scratch(bc, c, h, p, n),), **f32)
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
+    ddt = torch.empty((b, nb, c, h), **f32)
+    dA = torch.empty((h,), **f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.ssd_intra_chunk_bwd(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), ptr(dy),
+        ptr(dcontrib), ptr(ddecay), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), scratch.data_ptr(), bc, c, h, p, n, code,
+        torch._C._cuda_getCurrentRawStream(x.get_device()),
+    )
+    if err != 0:
+        raise RuntimeError(f"ssd_intra_chunk_bwd launch failed: CUDA error {err}")
+    ssd_intra_chunk_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+def ssd_intra_chunk_bwd(x, dt, A, Bm, Cm, dy=None, dcontrib=None, ddecay=None):
+    """The intra-chunk part's backward on whatever device ``x`` lies on: the
+    CUDA kernel for a CUDA tensor (raising if it cannot build or launch),
+    the plain version for a CPU tensor.  ``dy``, ``dcontrib`` and ``ddecay``
+    are the gradients of y_intra, contrib and chunk_decay (None: zero).
+    Returns ``(dx, ddt, dA, dB, dC)``.  ``ssd_intra_chunk_bwd.launches``
+    counts kernel launches."""
+    if x.device.type == "cuda":
+        return _ssd_intra_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy, dcontrib, ddecay)
+    if x.device.type != "cpu":
+        raise ValueError(f"ssd_intra_chunk_bwd: unsupported device {x.device}")
+    return ssd_intra_chunk_bwd_plain(x, dt, A, Bm, Cm, dy, dcontrib, ddecay)
+
+
+ssd_intra_chunk_bwd.launches = 0
+
+
+class SsdIntraChunkFn(torch.autograd.Function):
+    """Differentiable intra-chunk SSD part: the forward is
+    :func:`ssd_intra_chunk`, the backward :func:`ssd_intra_chunk_bwd`
+    (kernels for CUDA tensors, plain versions for CPU tensors).  Only the
+    five inputs are kept between the two; an output whose gradient autograd
+    does not supply costs the backward nothing.
+
+        y_intra, contrib, chunk_decay = SsdIntraChunkFn.apply(x, dt, A, Bm, Cm)
+    """
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.set_materialize_grads(False)
+        return ssd_intra_chunk(x, dt, A, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy, dcontrib, ddecay):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        dx, ddt, dA, dB, dC = ssd_intra_chunk_bwd(x, dt, A, Bm, Cm, dy, dcontrib, ddecay)
+        return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC

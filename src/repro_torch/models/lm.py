@@ -11,13 +11,12 @@ leaf (:mod:`repro_torch.models.convert`).  The reference's ``lax.scan``
 over layers is a Python loop over those stacks; the caches are
 written in place, one layer view at a time.
 
-Training (``loss``, ``backbone(train=True)``) runs the dense stack: the
+Training (``loss``, ``backbone(train=True)``) runs every stack: the
 layers run under ``torch.utils.checkpoint`` when ``cfg.remat`` (the
 reference's ``jax.checkpoint``), in groups of ~sqrt(L) as well when
-``sqrt_remat`` is set (its ``_grouped_scan``).  Training the MoE, SSM and
-hybrid stacks, whose kernels have no backward yet, raises
-``NotImplementedError`` naming its ROADMAP item by title
-(``check_trainable``).
+``sqrt_remat`` is set (its ``_grouped_scan``).  Autograd goes through the
+kernels' backwards: attention's, ``moe_gmm``'s, ``ssd_intra_chunk``'s and
+``rglru_scan``'s (``kernels/ops.py``).
 
 Modality frontends are stubs, as in the reference: phi-3-vision takes
 precomputed patch embeddings put in front of the tokens; musicgen takes
@@ -42,21 +41,7 @@ from .mla import init_mla_cache, mla_apply, mla_init
 from .moe import moe_apply, moe_init
 from .rglru import init_lru_state, rglru_apply, rglru_init
 
-__all__ = ["LM", "init_params", "check_trainable", "train_step_fn"]
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item, by title, for
-    a stack the port cannot train yet: the MoE, SSM and hybrid stacks,
-    whose kernels (``moe_gmm``, ``ssd_intra_chunk``, ``rglru_scan``) have
-    no backward, so autograd would silently give their inputs no
-    gradient."""
-    if cfg.num_experts or cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} stack is not ported yet: "
-            f"ROADMAP: training for the MoE, SSM and hybrid stacks (backward kernels "
-            f"for moe_gmm, ssd_intra_chunk and rglru_scan)"
-        )
+__all__ = ["LM", "init_params", "train_step_fn"]
 
 
 # ---------------------------------------------------------------------------
@@ -198,16 +183,13 @@ class LM:
     def backbone(self, params, x: torch.Tensor, *, positions: torch.Tensor,
                  cache: Optional[Dict] = None, cache_pos: Optional[int] = None,
                  train: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
-        """``train`` (no cache; the dense stack only) remats the layers as
-        ``cfg.remat`` says."""
-        if train:
-            check_trainable(self.cfg)
-            if cache is not None:
-                raise ValueError("backbone(train=True) takes no cache")
+        """``train`` (no cache) remats the layers as ``cfg.remat`` says."""
+        if train and cache is not None:
+            raise ValueError("backbone(train=True) takes no cache")
         if self.cfg.family == "ssm":
-            x, cache = self._ssm_stack(params, x, cache)
+            x, cache = self._ssm_stack(params, x, cache, train)
         elif self.cfg.family == "hybrid":
-            x, cache = self._hybrid_stack(params, x, positions, cache, cache_pos)
+            x, cache = self._hybrid_stack(params, x, positions, cache, cache_pos, train)
         else:
             x, cache = self._attn_stack(params, x, positions, cache, cache_pos, train)
         return rms_norm(x, params["final_norm"]), cache
@@ -279,27 +261,36 @@ class LM:
             x = layer(x, i)
         return x
 
-    def _ssm_stack(self, params, x, cache):
+    def _ssm_stack(self, params, x, cache, train=False):
         """Mamba-2 layers.  A decode step's state is float32 (the
         reference's ``_ssm_step`` returns it so, and its layer scan stacks
         it), so the cache's SSM planes turn float32 at the first decode
         step and stay so, as the reference's do."""
         if cache is not None and x.shape[1] == 1 and cache["ssm"].dtype != torch.float32:
             cache["ssm"] = cache["ssm"].float()
-        for i, layer in enumerate(_unstack(params["layers"], self.cfg.num_layers)):
-            h = rms_norm(x, layer["norm"])
+        layers = _unstack(params["layers"], self.cfg.num_layers)
+
+        def block(x, i):
             state = None if cache is None else {"ssm": cache["ssm"][i],
                                                 "conv": cache["conv"][i]}
-            out, new = mamba_apply(layer["mamba"], h, self.cfg, state=state)
+            out, new = mamba_apply(layers[i]["mamba"], rms_norm(x, layers[i]["norm"]),
+                                   self.cfg, state=state)
             if cache is not None:
                 cache["ssm"][i] = new["ssm"]
                 cache["conv"][i] = new["conv"]
-            x = x + out
+            return x + out
+
+        if train:
+            return self._train_layers(block, x, self.cfg.num_layers), cache
+        for i in range(self.cfg.num_layers):
+            x = block(x, i)
         return x, cache
 
-    def _hybrid_stack(self, params, x, positions, cache, cache_pos):
+    def _hybrid_stack(self, params, x, positions, cache, cache_pos, train=False):
         """Units of ``k`` RG-LRU blocks and one local-attention block on
-        the ring cache, then the pattern's trailing RG-LRU blocks."""
+        the ring cache, then the pattern's trailing RG-LRU blocks.  In
+        training each block is one layer of ``_train_layers`` (the
+        reference remats per unit: the same numbers)."""
         cfg = self.cfg
         k = cfg.lru_blocks_per_attn
         n_lru, n_att = _hybrid_layout(cfg)
@@ -309,7 +300,9 @@ class LM:
         order += [("lru", i) for i in range(n_att * k, n_lru)]
         stacks = {"lru": _unstack(params["lru_layers"], n_lru),
                   "attn": _unstack(params["attn_layers"], n_att)}
-        for kind, i in order:
+
+        def block(x, j):
+            kind, i = order[j]
             layer = stacks[kind][i]
             if kind == "lru":
                 state = None if cache is None else {"h": cache["h"][i],
@@ -326,7 +319,12 @@ class LM:
                     cache_pos=cache_pos, ring=True,
                 )
             x = x + out
-            x = x + gated_mlp(layer["mlp"], rms_norm(x, layer["ln2"]))
+            return x + gated_mlp(layer["mlp"], rms_norm(x, layer["ln2"]))
+
+        if train:
+            return self._train_layers(block, x, len(order)), cache
+        for j in range(len(order)):
+            x = block(x, j)
         return x, cache
 
     # -- heads ---------------------------------------------------------------

@@ -3,8 +3,9 @@ checkpoint/restore-based fault tolerance, on one device.
 
 The reference jits its step and donates the parameter and optimizer
 buffers; here the step runs eagerly: ``loss.backward()`` through the
-model (attention's backward on its kernel), then AdamW updates every
-leaf in place and the gradients are freed.  Sharding across a mesh is
+model (attention's, ``moe_gmm``'s, SSD's and RG-LRU's backwards on their
+kernels), then AdamW updates every leaf in place and the gradients are
+freed.  Sharding across a mesh is
 not ported (``mesh=`` raises).
 
 Used by ``launch/train.py`` and ``chip_smoke.py``'s ``train`` phase.
@@ -20,7 +21,6 @@ import torch
 from .._device import resolve_device
 from ..models import LM, init_params
 from ..models.config import ModelConfig
-from ..models.lm import check_trainable
 from .checkpoint import CheckpointManager, to_tensor
 from .optimizer import AdamWConfig, _tree_map, adamw_init, adamw_update, tree_leaves
 
@@ -42,7 +42,7 @@ class Trainer:
     """``Trainer(cfg, tcfg, seed=0, device="cuda")``: parameters from
     ``init_params`` on a generator seeded with ``seed``, AdamW moments in
     float32 (``adamw_init`` without ``state_dtype``, as the reference's
-    trainer calls it).  The dense stack only (``check_trainable``)."""
+    trainer calls it).  Every stack of the zoo trains."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, mesh=None, seed: int = 0,
                  device="cuda"):
@@ -51,7 +51,6 @@ class Trainer:
                 "Trainer(mesh=...) is not ported yet: ROADMAP: distribution/* and "
                 "launch/{mesh,dryrun}.py (A8)"
             )
-        check_trainable(cfg)
         self.cfg = cfg
         self.tcfg = tcfg
         self.mesh = mesh

@@ -1,8 +1,10 @@
 """The port on the card: the CUDA kernels (ladder grant, the fused EDF
 allocator, flash attention,
-MoE grouped matmul, SSD intra-chunk, RG-LRU scan) against their plain
+MoE grouped matmul, SSD intra-chunk, RG-LRU scan, and the backwards of
+the last four) against their plain
 versions, the torch sampler,
-round loop, LM (every arch's stack and frontend, reduced) and serving
+round loop, LM (every arch's stack and frontend, reduced; the MoE, SSM
+and hybrid stacks' gradients) and serving
 engine on CUDA against their CPU runs.
 Every test here needs a CUDA device and skips without one.
 
@@ -630,3 +632,118 @@ def test_train_step_gives_every_leaf_a_gradient(cuda):
         assert p.grad is not None, name
         assert bool(torch.isfinite(p.grad).all()), name
         assert bool((p.grad != 0).any()), name
+
+
+def _rel_max(got, want):
+    """Max abs difference over want's largest entry."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+#: each gradient to a share of its largest entry: float32 sums in another
+#: order; bf16 one rounding of each output on both sides
+TOL_BWD_MAX = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E, C, D, F", [(4, 10, 64, 32), (3, 70, 40, 72), (2, 320, 1024, 512),
+                                        (2, 8, 5120, 1536)])
+def test_moe_gmm_bwd_kernel_matches_plain(cuda, dtype, E, C, D, F):
+    g = torch.Generator(device=cuda).manual_seed(E * C + D)
+    x = torch.randn((E, C, D), generator=g, device=cuda).to(dtype)
+    wg, wu = (torch.randn((E, D, F), generator=g, device=cuda).mul(D ** -0.5).to(dtype)
+              for _ in range(2))
+    wd = torch.randn((E, F, D), generator=g, device=cuda).mul(F ** -0.5).to(dtype)
+    dy = torch.randn((E, C, D), generator=g, device=cuda).to(dtype)
+    before = MG.moe_gmm_bwd.launches
+    got = MG.moe_gmm_bwd(x, wg, wu, wd, dy)
+    assert MG.moe_gmm_bwd.launches == before + 1
+    for a, b in zip(got, MG.moe_gmm_bwd_plain(x, wg, wu, wd, dy)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel_max(a, b) <= TOL_BWD_MAX[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, nb, C, H, P, N", [(1, 2, 40, 3, 8, 24), (8, 1, 128, 80, 64, 128),
+                                               (2, 4, 256, 5, 128, 256)])
+@pytest.mark.parametrize("given", ["all", "y_only"])
+def test_ssd_intra_chunk_bwd_kernel_matches_plain(cuda, dtype, B, nb, C, H, P, N, given):
+    g = torch.Generator(device=cuda).manual_seed(C + H + P)
+    x = torch.randn((B, nb, C, H, P), generator=g, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, nb, C, H), generator=g, device=cuda))
+    A = -torch.exp(0.3 * torch.randn((H,), generator=g, device=cuda))
+    Bm, Cm = (torch.randn((B, nb, C, N), generator=g, device=cuda).to(dtype) for _ in range(2))
+    grads = [torch.randn(s, generator=g, device=cuda)
+             for s in ((B, nb, C, H, P), (B, nb, H, P, N), (B, nb, H))]
+    if given == "y_only":
+        grads[1:] = [None, None]
+    before = SSD.ssd_intra_chunk_bwd.launches
+    got = SSD.ssd_intra_chunk_bwd(x, dt, A, Bm, Cm, *grads)
+    assert SSD.ssd_intra_chunk_bwd.launches == before + 1
+    for a, b in zip(got, SSD.ssd_intra_chunk_bwd_plain(x, dt, A, Bm, Cm, *grads)):
+        assert a.shape == b.shape
+        assert _rel_max(a, b) <= TOL_BWD_MAX[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, L, W", [(8, 128, 4096), (2, 13, 4096), (1, 2047, 4096),
+                                     (1, 2049, 4096), (4, 2049, 100), (4, 1, 100)])
+def test_rglru_scan_bwd_kernel_matches_plain(cuda, dtype, B, L, W):
+    g = torch.Generator(device=cuda).manual_seed(L + W)
+    x, r, i = (torch.randn((B, L, W), generator=g, device=cuda).to(dtype) for _ in range(3))
+    lam = torch.randn((W,), generator=g, device=cuda)
+    h0 = torch.randn((B, W), generator=g, device=cuda).to(dtype)
+    out, _ = RG.rglru_scan(x, r, i, lam, h0)
+    dh = torch.randn((B, L, W), generator=g, device=cuda)
+    dht = torch.randn((B, W), generator=g, device=cuda)
+    before = RG.rglru_scan_bwd.launches
+    got = RG.rglru_scan_bwd(x, r, i, lam, h0, out, dh, dht)
+    assert RG.rglru_scan_bwd.launches == before + 1
+    for a, b in zip(got, RG.rglru_scan_bwd_plain(x, r, i, lam, h0, out, dh, dht)):
+        assert a.shape == b.shape
+        assert _rel_max(a, b) <= TOL_BWD_MAX[dtype]
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b", "mamba2_2p7b", "recurrentgemma_9b",
+                                  "deepseek_v2_236b"])
+def test_train_loss_and_grads_on_cuda_match_cpu(cuda, arch):
+    """The reduced stack's loss and every gradient leaf, float32, on the card
+    (the backward kernels) and on the CPU (their plain versions); mamba2 at
+    seq 64 (four of its 16-token chunks)."""
+    from repro_torch.models.lm import train_step_fn
+    from repro_torch.training.data import DataConfig, synthetic_stream
+
+    cfg = get_config(arch, reduced=True)
+    params = init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    seq = 64 if cfg.family == "ssm" else 20
+    batch = next(synthetic_stream(cfg, DataConfig(batch=2, seq_len=seq), device="cpu"))
+    grads, losses = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = {}
+
+        def walk(t, out):
+            for key, val in t.items():
+                if isinstance(val, dict):
+                    out[key] = {}
+                    walk(val, out[key])
+                else:
+                    out[key] = val.detach().to(dev).requires_grad_(True)
+
+        walk(params, p)
+        loss = train_step_fn(cfg)(p, {k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        losses[dev] = loss.item()
+        flat = []
+
+        def leaves(t, name=""):
+            for key in sorted(t):
+                if isinstance(t[key], dict):
+                    leaves(t[key], f"{name}{key}/")
+                else:
+                    flat.append((name + key, t[key].grad.cpu()))
+
+        leaves(p)
+        grads[dev] = flat
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    for (name, a), (_, b) in zip(grads["cuda"], grads["cpu"]):
+        assert _rel_max(a, b) <= 1e-4, name

@@ -4,8 +4,8 @@ attention's backward (plain version and ``FlashAttentionFn``) against
 AdamW and int8 compression, the data stream, the straggler monitor,
 checkpoints in both directions (bfloat16 included, ROADMAP C13), ``LM.loss``
 and its gradients on reduced phi4-mini with the reference's own weights,
-``Trainer.fit`` (plain, accumulated, resumed), the stacks that must not
-train yet, and the launcher.  Inputs are drawn with NumPy from a seed.
+``Trainer.fit`` (plain, accumulated, resumed), every arch accepted for
+training and the mesh still refused, and the launcher.  Inputs are drawn with NumPy from a seed.
 """
 import dataclasses
 import os
@@ -39,7 +39,6 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import LM, params_from_reference  # noqa: E402
 from repro_torch.models.common import chunked_xent  # noqa: E402
-from repro_torch.models.lm import check_trainable  # noqa: E402
 from repro_torch.training import AdamWConfig, TrainConfig, Trainer  # noqa: E402
 from repro_torch.training import optimizer as topt  # noqa: E402
 from repro_torch.training.checkpoint import CheckpointManager  # noqa: E402
@@ -330,17 +329,23 @@ def test_lm_loss_and_grads_match_reference(remat, sqrt_remat, layers):
 
 
 def test_stacks_without_a_backward_refuse_to_train():
-    for arch in ("granite_moe_1b", "mamba2_2p7b", "recurrentgemma_9b"):
+    """Written while the MoE, SSM and hybrid stacks had no backward and
+    refused to train (then ROADMAP A7b); their kernels' backwards are
+    ported now, so ``Trainer`` takes every arch's reduced config (its
+    parameters all trainable), while ``Trainer(mesh=...)`` still raises,
+    naming A8 (tests/test_torch_train_stacks.py holds the new stacks'
+    gradients against the reference)."""
+    from repro_torch.configs import ARCHS
+
+    assert len(ARCHS) == 10
+    for arch in ARCHS:
         cfg = get_config(arch, reduced=True)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP: training for the MoE, SSM and hybrid stacks"):
-            check_trainable(cfg)
-        with pytest.raises(NotImplementedError, match="training for the MoE"):
-            Trainer(cfg, TrainConfig(steps=1), device="cpu")
-    check_trainable(get_config("phi4_mini_3p8b", reduced=True))
-    with pytest.raises(NotImplementedError, match="A8"):
-        Trainer(get_config("phi4_mini_3p8b", reduced=True), TrainConfig(), mesh=object(),
-                device="cpu")
+        t = Trainer(cfg, TrainConfig(steps=1), device="cpu")
+        leaves = [leaf for _, leaf in _leaves(t.params)]
+        assert leaves and all(leaf.requires_grad for leaf in leaves), arch
+    for arch in ("phi4_mini_3p8b", "granite_moe_1b", "mamba2_2p7b", "recurrentgemma_9b"):
+        with pytest.raises(NotImplementedError, match="A8"):
+            Trainer(get_config(arch, reduced=True), TrainConfig(), mesh=object(), device="cpu")
 
 
 # ---------------------------------------------------------------------------
