@@ -135,6 +135,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -333,13 +334,51 @@ def phase_build():
          ptxas={k: [ln.split("ptxas info    : ")[-1] for ln in v.splitlines()
                     if any(w in ln for w in keep)]
                 for k, v in _cuda.BUILD_LOG.items()})
-    for name in ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_intra_chunk"):
+    for name in ("flash_attention", "flash_attention_bwd", "moe_gmm", "moe_gmm_bwd",
+                 "ssd_intra_chunk"):
         counts = sass_counts(libs[name])
         emit("sass", kernel=name, functions=counts)
         mma = [f for f in counts if "mma_kernel" in f]
         check(mma and all(counts[f]["HMMA"] > 0 and counts[f]["LDSM"] > 0
                           and counts[f]["LDGSTS"] > 0 for f in mma),
               f"{name}: a tensor-core kernel lacks HMMA / LDSM / LDGSTS: {counts}")
+    # registers and spills of every tensor-core kernel (ptxas's report of
+    # this build); the backwards' must not spill
+    spills = {name: {f: sp for f, sp in ptxas_spills(log).items() if "mma_kernel" in f}
+              for name, log in _cuda.BUILD_LOG.items()}
+    emit("spills", mma_functions=sum(map(len, spills.values())),
+         spilling={f: sp[:2] for per in spills.values() for f, sp in per.items() if any(sp[:2])},
+         bwd_registers={_short(f): sp[2] for name in ("flash_attention_bwd", "moe_gmm_bwd")
+                        for f, sp in spills.get(name, {}).items()})
+    bad = [f for name in ("flash_attention_bwd", "moe_gmm_bwd")
+           for f, sp in spills.get(name, {}).items() if any(sp[:2])]
+    check(not bad, f"a tensor-core backward kernel spills: {bad}")
+
+
+def ptxas_spills(log):
+    """Per kernel function of a ``ptxas -v`` report: (spill store bytes,
+    spill load bytes, registers)."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif fn is not None and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            out[fn] = (int(m.group(1)), int(m.group(2)), 0)
+        elif fn is not None and "Used" in ln and fn in out:
+            m = re.search(r"Used (\d+) registers", ln)
+            out[fn] = (*out[fn][:2], int(m.group(1)) if m else 0)
+            fn = None
+    return out
+
+
+def _short(fn):
+    """A mangled kernel name cut to its own name and template arguments."""
+    m = re.search(r"\d+((?:flash|moe)_\w*?kernel)(\w*)", fn)
+    if not m:
+        return fn
+    args = re.findall(r"Li(\d+)E", m.group(2).split("Ev")[0])
+    return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
 
 
 #: kernel vs plain version: the reference's kernel-test tolerances
@@ -723,7 +762,7 @@ def _bwd_kernel_checks(errs):
          tol={str(k)[6:]: v for k, v in TOL_LSE.items()}, max_abs_err=max(res.values()),
          max_abs_err_by_case=res)
 
-    res, paths = {}, {}
+    res, paths, lib_err, groups = {}, {}, {}, {}
     for i, (name, B, Hq, Hkv, Lq, Lk, D, qo, kvl, w, c) in enumerate(BWD_CASES):
         for dtype in DTYPES:
             q, k, v = flash_inputs(B, Hq, Hkv, Lq, Lk, D, dtype, seed=800 + 10 * i)
@@ -741,11 +780,48 @@ def _bwd_kernel_checks(errs):
                                      TOL_BWD))
             errs["flash_attention_bwd"].append(err)
             res[f"{name}/{str(dtype)[6:]}"] = err
-            paths[FA.bwd_path(dtype, D)] = paths.get(FA.bwd_path(dtype, D), 0) + 1
+            plan = FA.flash_bwd_plan(dtype, B, Hq, Hkv, Lq, Lk, D)
+            paths[plan.path] = paths.get(plan.path, 0) + 1
+            if dtype != torch.bfloat16:
+                continue
+            check(plan.path == "mma", f"flash bwd {name}: bf16 at D = {D} runs {plan.path}")
+            # a second call on the same inputs gives the same bits (no atomics)
+            again = FA.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash_attention_bwd {name}: two calls differ")
+            lib = _sdpa_bwd(q, k, v, dout, qo, kvl, w) if c == 0 else None
+            if lib is not None:
+                lib_err[name] = max(_held(g, wnt, dtype, f"flash_attention_bwd {name} {part} vs "
+                                          f"SDPA's backward", TOL_BWD_LIB)
+                                    for g, wnt, part in zip(got, lib, ("dq", "dk", "dv")))
+            groups[name] = plan.groups
     check(set(paths) == {"mma", "fma"}, f"flash bwd: both designs must be checked, got {paths}")
     emit("kernel", name="flash_attention_bwd", cases=len(res), cases_by_path=paths,
          tol={str(k)[6:]: v for k, v in TOL_BWD.items()},
-         max_abs_err=max(errs["flash_attention_bwd"]), max_abs_err_by_case=res)
+         max_abs_err=max(errs["flash_attention_bwd"]), max_abs_err_by_case=res,
+         bf16_bit_equal_repeat=True, head_groups=groups,
+         vs_sdpa_bwd_tol=TOL_BWD_LIB[torch.bfloat16], vs_sdpa_bwd_max_abs_err=lib_err,
+         not_vs_sdpa="softcap (SDPA has none)")
+
+
+def _sdpa_bwd(q, k, v, dout, q_offset, kv_valid_len, window):
+    """SDPA's backward (``scaled_dot_product_attention`` under autograd,
+    GQA, the same causal / window / offset / valid-length mask) on the same
+    inputs; None where a query row sees no key (SDPA gives it NaN)."""
+    import torch.nn.functional as F
+
+    Lq, Lk = q.shape[2], k.shape[2]
+    qpos = q_offset + torch.arange(Lq, device=q.device)[:, None]
+    kpos = torch.arange(Lk, device=q.device)[None, :]
+    mask = (kpos < kv_valid_len) & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    if not bool(mask.any(dim=1).all()):
+        return None
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, enable_gqa=True)
+    return torch.autograd.grad(o, (ql, kl, vl), dout)
 
 
 #: the MoE, SSM and hybrid stacks' backward kernels against their plain
@@ -843,10 +919,18 @@ def _train_bwd_kernel_checks(errs):
             for g, w, part in zip(got, want, ("dx", "dwg", "dwu", "dwd")):
                 check(g.dtype == dtype, f"moe_gmm_bwd {name} {part}: dtype {g.dtype}")
                 err = max(err, _held_max(g, w, dtype, f"moe_gmm_bwd {name} {dtype} {part}"))
+            if dtype == torch.bfloat16:
+                check(MG.moe_bwd_path(dtype, D, Fd) == "mma", f"moe_gmm_bwd {name}: not mma")
+                # a second call on the same inputs gives the same bits (no atomics)
+                again = MG.moe_gmm_bwd(x, wg, wu, wd, dy)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"moe_gmm_bwd {name}: two calls differ")
+                del again
             del x, wg, wu, wd, dy, got, want
             errs["moe_gmm_bwd"].append(err)
             res[f"{name}/{str(dtype)[6:]}"] = err
-    emit("kernel", name="moe_gmm_bwd", cases=len(res),
+    emit("kernel", name="moe_gmm_bwd", cases=len(res), bf16_path="mma", bf16_bit_equal_repeat=True,
          tol_of_max={str(k)[6:]: v for k, v in TOL_BWD_MAX.items()},
          max_abs_err=max(errs["moe_gmm_bwd"]), max_abs_err_by_case=res)
 
@@ -2432,6 +2516,43 @@ def device_ms(fn, iters=20):
     return None
 
 
+def device_ms_by_kernel(fn, iters=5, per_call=None):
+    """Device ms per call of each CUDA kernel ``fn`` launches (by its name
+    cut to the kernel and its template arguments), under torch.profiler.
+    With ``per_call`` (the kernels one call launches) a window that records
+    another count is taken again, up to three windows (the profiler at times
+    records a fraction of a window's kernels, section 7 of PERF.md); empty
+    if no window holds the count, or records no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        n, _busy, by_name = _device_kernels(prof)
+        if n and (per_call is None or n == per_call * iters):
+            break
+    else:
+        return {}
+    out = {}
+    for name, (_n, us) in by_name.items():
+        m = re.search(r"(\w+)(<[^()]*>)?\(", name)
+        key = (m.group(1) + (m.group(2) or "")) if m else name
+        out[key] = out.get(key, 0.0) + us / iters / 1e3
+    return out
+
+
+def device_ms_checked(fn, per_call, iters=5):
+    """Device ms per call from a window holding every kernel ``fn``
+    launches (``device_ms_by_kernel``), with its split by kernel; (None,
+    {}) if no window did."""
+    split = device_ms_by_kernel(fn, iters, per_call)
+    return (sum(split.values()) if split else None), split
+
+
 #: the flash timing rows: granite-moe's decode and prefill (D = 64, the
 #: kernels-line row is the decode, the call the serve path makes most),
 #: recurrentgemma's ring decode and prefill (D = 256, MQA) as it serves,
@@ -2533,10 +2654,11 @@ def _flash_timing(launches, errs):
 
 def _flash_bwd_timing(launches, errs):
     """The backward at phi4-mini's train shape (the kernels-line row), at
-    2048 tokens, and at granite-moe's and recurrentgemma's train shapes (D
-    = 256: the CUDA-core design): ms per call, device ms, plain version,
-    bound, and SDPA's backward (``scaled_dot_product_attention`` under
-    autograd, causal, GQA) at the same shape."""
+    2048 tokens, and at granite-moe's and recurrentgemma's train shapes:
+    ms per call, device ms (taken twice), plain version, bound, and SDPA's
+    backward (``scaled_dot_product_attention`` under autograd, causal, GQA)
+    at the same shape; in the same call the design this one replaces on the
+    same inputs in bf16, the CUDA cores (``fma``)."""
     import torch.nn.functional as F
 
     out = {}
@@ -2556,29 +2678,48 @@ def _flash_bwd_timing(launches, errs):
         for g, w in zip(got, lib):
             _held(g, w, dt, f"flash_attention_bwd {name} vs SDPA's backward", TOL_BWD_LIB)
 
-        def call():
-            return FA.flash_attention_bwd(q, k, v, o, lse, dout)
+        def call(design=None):
+            return FA._flash_attention_bwd_cuda(
+                q, k, v, o, lse, dout, causal=True, window=0, softcap=0.0, scale=None,
+                q_offset=0, kv_offset=0, kv_valid_len=None, design=design)
 
         def lib_call():
             return torch.autograd.grad(lo, (ql, kl, vl), dout, retain_graph=True)
 
         long = Lq * Lk > 1 << 20
-        n_it = 20 if long else 100
+        n_it, n_dev = (20, 5) if long else (100, 20)
+        for g, w in zip(call("fma"), want):     # the replaced design's answer too
+            _held(g, w, dt, f"flash_attention_bwd {name} design fma", TOL_BWD)
         ms = cuda_ms(call, iters=n_it, warmup=3)
         plain_ms = cuda_ms(lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, dout),
                            iters=5 if long else 20, warmup=2)
         lib_ms = cuda_ms(lib_call, iters=n_it, warmup=3)
         ms2 = cuda_ms(call, iters=n_it, warmup=3)
-        dev = device_ms(call, iters=5 if long else 20)
-        lib_dev = device_ms(lib_call, iters=5 if long else 20)
+        plan = FA.flash_bwd_plan(dt, B, Hq, Hkv, Lq, Lk, D)
+        # delta, dK/dV and dQ kernels, and the head groups' sum
+        dev, split = device_ms_checked(call, 3 + (plan.groups > 1), iters=n_dev)
+        dev2, _ = device_ms_checked(call, 3 + (plan.groups > 1), iters=n_dev)
+        lib_dev = device_ms(lib_call, iters=n_dev)
+        other = {"fma": dict(ms=cuda_ms(lambda: call("fma"), iters=n_it, warmup=3),
+                             device_ms=device_ms_checked(lambda: call("fma"), 3,
+                                                         iters=n_dev)[0])}
         pairs = B * Hq * Lq * (Lq + 1) // 2            # causal, Lq == Lk
         # q, out, dout in and dq out; k, v in and dk, dv out; lse in
         nbytes = 2 * (4 * B * Hq * Lq * D + 4 * B * Hkv * Lk * D) + 4 * B * Hq * Lq
         nops = 10 * pairs * D        # q.k, dout.v, p^T dout, ds^T q, ds k
         bound_ms, by = _bound(nbytes, nops, BF16_OPS_PER_S)
-        out[name] = dict(ms=min(ms, ms2), ms_runs=[ms, ms2], device_ms=dev, plain_ms=plain_ms,
-                         library_ms=lib_ms, library_device_ms=lib_dev, bound_ms=bound_ms,
-                         bound_by=by, bytes=nbytes, ops=nops, path=FA.bwd_path(dt, D))
+        known = [x for x in (dev, dev2) if x is not None]
+        out[name] = dict(ms=min(ms, ms2), ms_runs=[ms, ms2],
+                         device_ms=min(known) if known else None, device_ms_runs=[dev, dev2],
+                         plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev,
+                         bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=nops, path=plan.path,
+                         device_ms_by_kernel=split,
+                         head_groups=plan.groups, dkdv_blocks=plan.dkdv_blocks(B, Hkv),
+                         dq_blocks=plan.dq_blocks(B, Hq), replaced_designs=other)
+        if known and other["fma"]["device_ms"] is not None:
+            check(min(known) < other["fma"]["device_ms"],
+                  f"flash_attention_bwd {name}: the tensor cores ({min(known)} ms) do not beat "
+                  f"the CUDA cores ({other['fma']['device_ms']} ms)")
         emit("timing", name="flash_attention_bwd", case=name, dtype="bfloat16",
              q=[B, Hq, Lq, D], kv=[B, Hkv, Lk, D], **out[name])
     d = out["phi4_train"]
@@ -2588,6 +2729,7 @@ def _flash_bwd_timing(launches, errs):
             "launches": int(launches), "max_abs_err": max(errs["flash_attention_bwd"]),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+            "device_ms": d["device_ms"], "replaced_designs": d["replaced_designs"],
             "phi4_L2048": out["phi4_L2048"], "granite_train": out["granite_train"],
             "rg_train_d256": out["rg_train_d256"]}
 
@@ -2630,9 +2772,25 @@ def _moe_bwd_timing(launches, per_step, errs):
         nbytes = 2 * (3 * E * C * D + 6 * E * D * Fd)
         nops = 16 * E * C * D * Fd      # h, u, g; dx (two); dwg, dwu, dwd
         bound_ms, by = _bound(nbytes, nops, BF16_OPS_PER_S)
+        # the design this one replaces, on the same inputs in bf16
+        fma = lambda: MG._moe_gmm_bwd_cuda(*args, design="fma")  # noqa: E731
+        errs["moe_gmm_bwd"].append(max(
+            _held_max(g, w, dt_, f"moe_gmm_bwd timing {name} (fma)")
+            for g, w in zip(fma(), MG.moe_gmm_bwd_plain(*args))))
         out[name] = dict(**_timed(lambda: MG.moe_gmm_bwd(*args),
                                   lambda: MG.moe_gmm_bwd_plain(*args)),
+                         path=MG.moe_bwd_path(dt_, D, Fd),
                          bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=nops)
+        # both designs launch three kernels a call: hidden, dx, dW
+        dev, split = device_ms_checked(lambda: MG.moe_gmm_bwd(*args), 3)
+        out[name].update(device_ms=dev, device_ms_by_kernel=split)
+        out[name]["plain_device_ms"] = device_ms(lambda: MG.moe_gmm_bwd_plain(*args), iters=3)
+        out[name]["replaced_designs"] = {"fma": dict(ms=cuda_ms(fma, iters=10, warmup=2),
+                                                     device_ms=device_ms_checked(fma, 3)[0])}
+        dev, fdev = out[name]["device_ms"], out[name]["replaced_designs"]["fma"]["device_ms"]
+        if dev is not None and fdev is not None:
+            check(dev < fdev, f"moe_gmm_bwd {name}: the tensor cores ({dev} ms) do not beat "
+                              f"the CUDA cores ({fdev} ms)")
         emit("timing", name="moe_gmm_bwd", case=name, dtype="bfloat16", shape=[E, C, D, Fd],
              library_ms=None, **out[name])
         del x, wg, wu, wd, dy, args

@@ -21,25 +21,42 @@
 // summed into its dk, dv, and every gradient written in the input dtype
 // (float32 or bfloat16).  No kv_positions (ring caches are not trained).
 //
-// Three launches, no atomics (so a run repeats bit for bit): a delta pass
+// No atomics (so a run repeats bit for bit): a delta pass
 // (`flash_bwd_delta_kernel`, one warp per row), then a dK/dV kernel whose
 // block owns a key tile of one (batch, KV head) and walks the query rows of
-// its G heads that can see it (the causal start and the window's end bound
-// the walk), then a dQ kernel whose block owns a query tile of one head and
-// walks the key tiles its rows can see.  p and dp are recomputed in both
+// its query heads that can see it (the causal start and the window's end
+// bound the walk), then a dQ kernel whose block owns a query tile of one head
+// and walks the key tiles its rows can see.  p and dp are recomputed in both
 // (the price of no atomics on dq).  Two designs of the pair:
 //
-// * bf16, D % 8 == 0, D <= 128, 16-byte aligned (the train path): tensor
-//   cores, mma.sync.m16n8k16 (bf16 in, float32 accumulate), 4 warps.  dK/dV
-//   (`flash_bwd_dkdv_mma_kernel`): 64 keys a block, 16 a warp; per tile of 32
-//   query rows, S^T = K Q^T and dP^T = V dO^T (K, V by ldmatrix as the A
-//   operand, Q, dO as B), p^T and ds^T formed in the accumulators' registers,
-//   then dV += P^T dO and dK += dS^T Q with P^T, dS^T turned into A
-//   fragments in registers (rounded to bf16, as the forward rounds p before
-//   its PV product) and dO, Q read by ldmatrix.trans.  dQ
-//   (`flash_bwd_dq_mma_kernel`): 64 rows a block, 16 a warp; per tile of 32
-//   keys, S = Q K^T, dP = dO V^T, then dQ += dS K.  Tiles are staged by
-//   16-byte cp.async into rows padded by 16 bytes (ldmatrix conflict-free).
+// * bf16, D % 8 == 0, D <= 256, 16-byte aligned (the train path; path 1):
+//   tensor cores, mma.sync.m16n8k16 (bf16 in, float32 accumulate), 8 warps,
+//   tiles moved by 16-byte cp.async into rows padded by 16 bytes (ldmatrix
+//   conflict-free) through 2-stage rings, so a tile loads while the previous
+//   one computes.  dK/dV (`flash_bwd_dkdv_ring_mma_kernel<kD, kQT>`): 64
+//   keys a block, K and V staged once; per ring tile of kQT query rows (64 at
+//   D <= 128, 32 at D = 256: shared memory) warp w forms S^T = K Q^T and dP^T
+//   = V dO^T for keys 16 (w % 4) by half the rows, p^T and ds^T in its
+//   accumulators' registers, and writes them to shared memory rounded to bf16
+//   (as the forward rounds p before its PV product); then dV += P^T dO and
+//   dK += dS^T Q for the same 16 keys by half of D, P^T and dS^T by ldmatrix,
+//   dO and Q by ldmatrix.trans.  Splitting D between the warp pair is what
+//   fits D = 256: 16 keys x 128 columns of dK and dV are 128 float32
+//   accumulators a thread.  dQ (`flash_bwd_dq_ring_mma_kernel<kD, kKT>`): 64
+//   rows a block, Q and dO staged once, key tiles of kKT (64, or 32 at D =
+//   256) through the ring; warp w forms S = Q K^T and dP = dO V^T for rows
+//   16 (w % 4) by half the keys, dS to shared memory in bf16, then dQ += dS
+//   K for its 16 rows by half of D.  A padded width (96, 160, 192) runs the
+//   next instance up with zero columns, whose products are skipped.
+//   GQA and MQA: the G query heads of a KV head are cut into `groups` head
+//   groups, one dK/dV block per (key tile, group); each group writes float32
+//   partials of dk and dv to the caller's scratch and
+//   `flash_bwd_reduce_kernel` sums them in group order and rounds once to
+//   bf16.  The caller sets `groups` from the shape alone
+//   (kernels/flash_attention.py `flash_bwd_plan`), so the sums are the same
+//   on every card: recurrentgemma's MQA train shape (8 x 16 heads on one KV
+//   head, 128 keys) has 16 key tiles of (batch, KV head) and runs 8 groups,
+//   128 blocks, where one group would leave 116 of 132 SMs idle.
 // * float32 (the card-vs-CPU check), and bf16 at other widths: CUDA cores
 //   (`flash_bwd_dkdv_kernel`, `flash_bwd_dq_kernel`), 8 warps, tiles of 32
 //   keys x 32 rows: p and ds formed with one key per lane and four rows per
@@ -51,8 +68,9 @@
 // 128, causal) does 10 D operations per visible (row, key) pair, 2 GFLOP a
 // layer, against 33.7 MB of operands: bytes-bound at 0.010 ms; at 2048
 // tokens, 64 GFLOP, operations-bound at 0.065 ms.  The CUDA-core design is
-// bound by shared-memory issue (~1.25 loads per FMA); the tensor-core design
-// by the recomputed products and the unpipelined tile loads.
+// bound by shared-memory issue (~1.25 loads per FMA); the tensor-core
+// designs by the recomputed products and the ldmatrix traffic of mma.sync
+// tiles (about one ldmatrix per two products).
 //
 // The kernels launch on the caller's stream, do not synchronise and
 // allocate nothing; the caller owns every buffer (delta is scratch).
@@ -338,15 +356,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on the tensor cores: every width up to 256
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
-
-constexpr int kMmaThreads = 128;
-constexpr int kMmaKeys = 64;  // dK/dV kernel: keys per block, 16 a warp
-constexpr int kMmaQT = 32;    // dK/dV kernel: query rows per tile
-constexpr int kMmaRows = 64;  // dQ kernel: query rows per block, 16 a warp
-constexpr int kMmaKT = 32;    // dQ kernel: keys per tile
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -385,67 +397,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The A fragment (16 x 16) of two adjacent 16 x 8 accumulators: columns
-// 0-7 from c0, 8-15 from c1, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c0, const float* c1) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Stage `n` rows of width D (row stride D, D % 8 == 0) into [rows][kD + 8]
-// bf16 by 16-byte cp.async; rows past `n` and columns past D are zeros.
-template <int kD>
-__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* __restrict__ src, int n,
-                                           int rows, int D) {
-  constexpr int kS = kD + 8;
-  constexpr int kChunks = kD / 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
-    const int r = i / kChunks;
-    const int c = i - r * kChunks;
-    const bool in = r < n && c * 8 < D;
-    cp_async16(dst + r * kS + c * 8, in ? src + static_cast<long long>(r) * D + c * 8 : src,
-               in ? 16 : 0);
-  }
-}
-
-// acc (16 x 16 per n-tile pair) += A (16 x kD, rows at `a`) . B^T where B is
-// `nrows` (16 or 32) rows of kD at `b`: S = A B^T over kD, as 2 * nrows / 16
-// n8 accumulators.
-template <int kD, int kN8>
-__device__ __forceinline__ void mma_abt(float (*acc)[4], const bf16* a, const bf16* b, int lane) {
-  constexpr int kS = kD + 8;
-#pragma unroll
-  for (int d0 = 0; d0 < kD; d0 += 16) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a + (lane & 15) * kS + d0 + (lane >> 4) * 8);
-#pragma unroll
-    for (int nb = 0; nb < kN8 / 2; ++nb) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, b + (nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * kS + d0 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * nb], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * nb + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 x kD, kD / 8 n8 accumulators) += A (16 x 16 fragment) . Z where Z
-// is 16 rows of kD at `z` (the A operand's k runs over Z's rows).
-template <int kD>
-__device__ __forceinline__ void mma_az(float (*acc)[4], const uint32_t* af, const bf16* z,
-                                       int lane) {
-  constexpr int kS = kD + 8;
-#pragma unroll
-  for (int d0 = 0; d0 < kD; d0 += 16) {
-    uint32_t zf[4];
-    ldmatrix_x4_trans(zf, z + ((lane & 7) + ((lane >> 3) & 1) * 8) * kS + d0 + (lane >> 4) * 8);
-    mma_bf16(acc[d0 / 8], af, zf[0], zf[1]);
-    mma_bf16(acc[d0 / 8 + 1], af, zf[2], zf[3]);
-  }
-}
-
 // p and ds of one accumulator element from its logit and dp
 __device__ __forceinline__ void p_ds(const Problem& p, float sdot, float dp, float lse,
                                      float delta, float* pr, float* ds) {
@@ -462,219 +413,383 @@ __device__ __forceinline__ void p_ds(const Problem& p, float sdot, float dp, flo
   *ds = d * p.scale;
 }
 
-template <int kD>
-size_t mma_smem_bytes() {
-  return sizeof(bf16) * (kD + 8) * (2 * kMmaKeys + 2 * kMmaQT) + sizeof(float) * 2 * kMmaRows;
+constexpr int kRingThreads = 256;  // 8 warps
+constexpr int kRingKeys = 64;      // dK/dV kernel: keys per block, 16 a warp pair
+constexpr int kRingRows = 64;      // dQ kernel: query rows per block, 16 a warp pair
+
+// 4 bytes global -> shared; `bytes` = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes));
 }
 
-template <int kD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, Problem p) {
+// Stage `n` rows of width D (row stride D, D % 8 == 0) into [kRows][kD + 8]
+// by 16-byte cp.async from every thread of the block; rows past `n` and
+// columns past D are zeros.
+template <int kD, int kRows>
+__device__ __forceinline__ void ring_rows(bf16* dst, const bf16* __restrict__ src, int n, int D) {
   constexpr int kS = kD + 8;
-  constexpr int kNT = kD / 8;
+  constexpr int kChunks = kD / 8;
+  for (int i = threadIdx.x; i < kRows * kChunks; i += kRingThreads) {
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    const bool in = r < n && c * 8 < D;
+    cp_async16(dst + r * kS + c * 8, in ? src + static_cast<long long>(r) * D + c * 8 : src,
+               in ? 16 : 0);
+  }
+}
+
+// Stage `n` floats (zeros up to kRows) by 4-byte cp.async.
+template <int kRows>
+__device__ __forceinline__ void ring_vec(float* dst, const float* __restrict__ src, int n) {
+  for (int i = threadIdx.x; i < kRows; i += kRingThreads)
+    cp_async4(dst + i, i < n ? src + i : src, i < n ? 4 : 0);
+}
+
+// acc (16 x kN8 * 8) += A . B^T over k < D: A 16 rows at `a`, B kN8 * 8 rows
+// at `b`, both [row][k] with row stride kS.
+template <int kS, int kN8>
+__device__ __forceinline__ void mma_rows(float (*acc)[4], const bf16* a, const bf16* b, int D,
+                                         int lane) {
+#pragma unroll
+  for (int d0 = 0; d0 < kS - 8; d0 += 16) {
+    if (d0 >= D) break;  // block-uniform: the zero columns a padded width adds
+    uint32_t af[4];
+    ldmatrix_x4(af, a + (lane & 15) * kS + d0 + (lane >> 4) * 8);
+#pragma unroll
+    for (int nb = 0; nb < kN8 / 2; ++nb) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + (nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * kS + d0 +
+                          ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * nb], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * nb + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x kC, kC / 8 n8 accumulators) += A (16 x 16 fragment) . Z where Z
+// is 16 rows (the product's k) at `z`, row stride kS, columns [0, kC) from
+// `z`; column tiles at or past `live` are skipped (zeros of a padded width).
+template <int kS, int kC>
+__device__ __forceinline__ void mma_frag_rows(float (*acc)[4], const uint32_t* af, const bf16* z,
+                                              int live, int lane) {
+#pragma unroll
+  for (int c0 = 0; c0 < kC; c0 += 16) {
+    if (c0 >= live) break;
+    uint32_t zf[4];
+    ldmatrix_x4_trans(zf, z + ((lane & 7) + ((lane >> 3) & 1) * 8) * kS + c0 + (lane >> 4) * 8);
+    mma_bf16(acc[c0 / 8], af, zf[0], zf[1]);
+    mma_bf16(acc[c0 / 8 + 1], af, zf[2], zf[3]);
+  }
+}
+
+template <int kD, int kQT>
+size_t ring_dkdv_smem_bytes() {
+  return sizeof(bf16) * ((2 * kRingKeys + 4 * kQT) * (kD + 8) + 2 * kRingKeys * (kQT + 8)) +
+         sizeof(float) * 4 * kQT;
+}
+template <int kD, int kKT>
+size_t ring_dq_smem_bytes() {
+  return sizeof(bf16) * ((2 * kRingRows + 4 * kKT) * (kD + 8) + kRingRows * (kKT + 8)) +
+         sizeof(float) * 2 * kRingRows;
+}
+
+// dK/dV: a block owns 64 keys of one (batch, KV head) and one group of
+// `groups` over the KV head's G query heads, and walks the (head, tile of kQT
+// rows) pairs of its group that can see its keys; Q, dO, lse and delta move
+// through a 2-stage cp.async ring.  Warp w: S^T and dP^T for keys 16 (w % 4)
+// by rows (w / 4) kQT / 2 of the tile; P^T and dS^T go to shared memory as
+// bf16; then dV += P^T dO and dK += dS^T Q for the same 16 keys by columns
+// (w / 4) kD / 2.  One group: dk, dv in bf16; more: float32 partials at
+// part[gi] (dk) and part[groups + gi] (dv), each (B, Hkv, Lk, D).
+template <int kD, int kQT>
+__global__ void __launch_bounds__(kRingThreads, 1)
+flash_bwd_dkdv_ring_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               float* __restrict__ part, int groups, Problem p) {
+  constexpr int kS = kD + 8;
+  constexpr int kSP = kQT + 8;       // a row of P^T / dS^T
+  constexpr int kHalf = kD / 2;      // dV, dK columns per warp
+  constexpr int kRN8 = kQT / 16;     // n8 tiles of a warp's kQT / 2 rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kMmaKeys][kS]
-  bf16* vs = ks + kMmaKeys * kS;                 // [kMmaKeys][kS]
-  bf16* qs = vs + kMmaKeys * kS;                 // [kMmaQT][kS]
-  bf16* dos = qs + kMmaQT * kS;                  // [kMmaQT][kS]
-  float* lse_s = reinterpret_cast<float*>(dos + kMmaQT * kS);
-  float* delta_s = lse_s + kMmaQT;
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kRingKeys][kS]
+  bf16* vs = ks + kRingKeys * kS;                // [kRingKeys][kS]
+  bf16* qs = vs + kRingKeys * kS;                // [2][kQT][kS]
+  bf16* dos = qs + 2 * kQT * kS;                 // [2][kQT][kS]
+  bf16* ps = dos + 2 * kQT * kS;                 // [kRingKeys][kSP]  P^T
+  bf16* dss = ps + kRingKeys * kSP;              // [kRingKeys][kSP]  dS^T
+  float* lse_s = reinterpret_cast<float*>(dss + kRingKeys * kSP);  // [2][kQT]
+  float* delta_s = lse_s + 2 * kQT;                                // [2][kQT]
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int j0 = blockIdx.x * kMmaKeys;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  // key tiles on the grid's slowest axis: under a causal mask the first
+  // tiles see the most rows, so the heaviest blocks are dispatched first
+  const int j0 = blockIdx.z * kRingKeys;
+  const int hk = blockIdx.x / groups;
+  const int gi = blockIdx.x - hk * groups;
+  const int b = blockIdx.y;
   const int g = p.Hq / p.Hkv;
+  const int hpg = g / groups;  // heads of this group
   const int D = p.D;
-  const int nk = min(kMmaKeys, p.Lk - j0);
+  const int nk = min(kRingKeys, p.Lk - j0);
   const long long kv_off = ((static_cast<long long>(b) * p.Hkv + hk) * p.Lk + j0) * D;
-  stage_bf16<kD>(ks, k + kv_off, nk, kMmaKeys, D);
-  stage_bf16<kD>(vs, v + kv_off, nk, kMmaKeys, D);
-  cp_async_commit();
+  ring_rows<kD, kRingKeys>(ks, k + kv_off, nk, D);
+  ring_rows<kD, kRingKeys>(vs, v + kv_off, nk, D);
 
+  // the query rows that can see any of this tile's valid keys
   const int j_last = min(j0 + nk, p.kv_valid) - 1;
   int qlo = 0, qhi = p.Lq;
   if (j_last < j0) qhi = 0;  // no valid key here: dk = dv = 0
   if (p.causal) qlo = max(qlo, p.kv_offset + j0 - p.q_offset);
   if (p.window > 0) qhi = min(qhi, p.kv_offset + j_last + p.window - p.q_offset);
+  const int nqt = qhi > qlo ? (qhi - qlo + kQT - 1) / kQT : 0;
+  const int ntiles = hpg * nqt;
 
-  float dk_acc[kNT][4], dv_acc[kNT][4];
+  // tile t: head t / nqt of the group, rows qlo + (t % nqt) kQT
+  auto load_tile = [&](int t, int st) {
+    const int h = t / nqt;
+    const int qi0 = qlo + (t - h * nqt) * kQT;
+    const int nq = min(kQT, qhi - qi0);
+    const long long row0 = (static_cast<long long>(b) * p.Hq + hk * g + gi * hpg + h) * p.Lq + qi0;
+    ring_rows<kD, kQT>(qs + st * kQT * kS, q + row0 * D, nq, D);
+    ring_rows<kD, kQT>(dos + st * kQT * kS, dout + row0 * D, nq, D);
+    ring_vec<kQT>(lse_s + st * kQT, lse + row0, nq);
+    ring_vec<kQT>(delta_s + st * kQT, delta + row0, nq);
+  };
+  if (ntiles > 0) load_tile(0, 0);
+  cp_async_commit();  // K, V and the first tile
+
+  const int kw = (warp & 3) * 16;          // this warp's keys
+  const int rw = (warp >> 2) * (kQT / 2);  // its rows of S^T
+  const int cw = (warp >> 2) * kHalf;      // its columns of dV, dK
+  float dk_acc[kHalf / 8][4], dv_acc[kHalf / 8][4];
 #pragma unroll
-  for (int n = 0; n < kNT; ++n)
+  for (int n = 0; n < kHalf / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk_acc[n][c] = dv_acc[n][c] = 0.f;
-  const bf16* kw = ks + warp * 16 * kS;
-  const bf16* vw = vs + warp * 16 * kS;
 
-  for (int h = 0; h < g; ++h) {
-    const long long row0 = (static_cast<long long>(b) * p.Hq + hk * g + h) * p.Lq;
-    for (int qi0 = qlo; qi0 < qhi; qi0 += kMmaQT) {
-      const int nq = min(kMmaQT, qhi - qi0);
-      __syncthreads();  // the previous tile's Q, dO, lse and delta are consumed
-      stage_bf16<kD>(qs, q + (row0 + qi0) * D, nq, kMmaQT, D);
-      stage_bf16<kD>(dos, dout + (row0 + qi0) * D, nq, kMmaQT, D);
-      cp_async_commit();
-      for (int i = threadIdx.x; i < kMmaQT; i += kMmaThreads) {
-        lse_s[i] = i < nq ? lse[row0 + qi0 + i] : 0.f;
-        delta_s[i] = i < nq ? delta[row0 + qi0 + i] : 0.f;
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      // S^T, dP^T: this warp's 16 keys x the tile's 32 rows
-      float st[4][4], dpt[4][4];
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t has landed; tile t - 1, P^T and dS^T are consumed
+    if (t + 1 < ntiles) load_tile(t + 1, st ^ 1);
+    cp_async_commit();
+    const int h = t / nqt;
+    const int qi0 = qlo + (t - h * nqt) * kQT;
+    const int nq = min(kQT, qhi - qi0);
+    const bf16* qt = qs + st * kQT * kS;
+    const bf16* dot = dos + st * kQT * kS;
+    const float* lt = lse_s + st * kQT;
+    const float* dlt = delta_s + st * kQT;
+    float sa[kRN8][4], da[kRN8][4];
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
+    for (int n = 0; n < kRN8; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) st[t][c] = dpt[t][c] = 0.f;
-      mma_abt<kD, 4>(st, kw, qs, lane);
-      mma_abt<kD, 4>(dpt, vw, dos, lane);
-      // element (t, c): key warp * 16 + lane / 4 + 8 (c >> 1), row t * 8 +
-      // 2 (lane % 4) + (c & 1) of the tile
+      for (int c = 0; c < 4; ++c) sa[n][c] = da[n][c] = 0.f;
+    mma_rows<kS, kRN8>(sa, ks + kw * kS, qt + rw * kS, D, lane);
+    mma_rows<kS, kRN8>(da, vs + kw * kS, dot + rw * kS, D, lane);
+    // element (n, c): key kw + lane / 4 + 8 (c >> 1), row rw + 8 n + 2 (lane % 4) + (c & 1)
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
+    for (int n = 0; n < kRN8; ++n) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int jl = warp * 16 + (lane >> 2) + 8 * (c >> 1);
-          const int il = t * 8 + ((lane & 3) << 1) + (c & 1);
-          float pr = 0.f, ds = 0.f;
-          if (il < nq && jl < nk && visible(p, qi0 + il, j0 + jl))
-            p_ds(p, st[t][c], dpt[t][c], lse_s[il], delta_s[il], &pr, &ds);
-          st[t][c] = pr;
-          dpt[t][c] = ds;
-        }
+      for (int c = 0; c < 4; ++c) {
+        const int jl = kw + (lane >> 2) + 8 * (c >> 1);
+        const int il = rw + n * 8 + ((lane & 3) << 1) + (c & 1);
+        float pr = 0.f, ds = 0.f;
+        if (il < nq && jl < nk && visible(p, qi0 + il, j0 + jl))
+          p_ds(p, sa[n][c], da[n][c], lt[il], dlt[il], &pr, &ds);
+        sa[n][c] = pr;
+        da[n][c] = ds;
       }
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t pa[4], da[4];
-        acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-        acc_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-        mma_az<kD>(dv_acc, pa, dos + kk * 16 * kS, lane);
-        mma_az<kD>(dk_acc, da, qs + kk * 16 * kS, lane);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int off = (kw + (lane >> 2) + 8 * hh) * kSP + rw + n * 8 + ((lane & 3) << 1);
+        *reinterpret_cast<uint32_t*>(ps + off) = pack_bf16(sa[n][2 * hh], sa[n][2 * hh + 1]);
+        *reinterpret_cast<uint32_t*>(dss + off) = pack_bf16(da[n][2 * hh], da[n][2 * hh + 1]);
       }
+    }
+    __syncthreads();  // P^T and dS^T of the whole tile are in
+#pragma unroll
+    for (int kk = 0; kk < kQT / 16; ++kk) {
+      uint32_t pa[4], dsa[4];
+      ldmatrix_x4(pa, ps + (kw + (lane & 15)) * kSP + kk * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(dsa, dss + (kw + (lane & 15)) * kSP + kk * 16 + (lane >> 4) * 8);
+      mma_frag_rows<kS, kHalf>(dv_acc, pa, dot + kk * 16 * kS + cw, D - cw, lane);
+      mma_frag_rows<kS, kHalf>(dk_acc, dsa, qt + kk * 16 * kS + cw, D - cw, lane);
     }
   }
   cp_async_wait_all();
+  const long long nel = static_cast<long long>(gridDim.y) * p.Hkv * p.Lk * D;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int jl = warp * 16 + (lane >> 2) + 8 * hh;
+    const int jl = kw + (lane >> 2) + 8 * hh;
     if (jl >= nk) continue;
 #pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + ((lane & 3) << 1) + e;
-        if (d < D) {
-          dk[kv_off + static_cast<long long>(jl) * D + d] = __float2bfloat16_rn(dk_acc[n][2 * hh + e]);
-          dv[kv_off + static_cast<long long>(jl) * D + d] = __float2bfloat16_rn(dv_acc[n][2 * hh + e]);
-        }
+    for (int n = 0; n < kHalf / 8; ++n) {
+      const int d = cw + n * 8 + ((lane & 3) << 1);
+      if (d >= D) continue;
+      const long long o = kv_off + static_cast<long long>(jl) * D + d;
+      if (groups == 1) {
+        *reinterpret_cast<uint32_t*>(dk + o) = pack_bf16(dk_acc[n][2 * hh], dk_acc[n][2 * hh + 1]);
+        *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(dv_acc[n][2 * hh], dv_acc[n][2 * hh + 1]);
+      } else {
+        *reinterpret_cast<float2*>(part + gi * nel + o) =
+            make_float2(dk_acc[n][2 * hh], dk_acc[n][2 * hh + 1]);
+        *reinterpret_cast<float2*>(part + (groups + gi) * nel + o) =
+            make_float2(dv_acc[n][2 * hh], dv_acc[n][2 * hh + 1]);
       }
     }
   }
 }
 
-template <int kD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, Problem p) {
+// dQ: a block owns 64 query rows of one head and walks the tiles of kKT
+// keys its rows can see; K and V move through a 2-stage cp.async ring.  Warp
+// w: S and dP for rows 16 (w % 4) by keys (w / 4) kKT / 2 of the tile; dS
+// goes to shared memory as bf16; then dQ += dS K for the same 16 rows by
+// columns (w / 4) kD / 2.
+template <int kD, int kKT>
+__global__ void __launch_bounds__(kRingThreads, 1)
+flash_bwd_dq_ring_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             bf16* __restrict__ dq, Problem p) {
   constexpr int kS = kD + 8;
-  constexpr int kNT = kD / 8;
+  constexpr int kSD = kKT + 8;    // a row of dS
+  constexpr int kHalf = kD / 2;   // dQ columns per warp
+  constexpr int kKN8 = kKT / 16;  // n8 tiles of a warp's kKT / 2 keys
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][kS]
-  bf16* dos = qs + kMmaRows * kS;                // [kMmaRows][kS]
-  bf16* ks = dos + kMmaRows * kS;                // [kMmaKT][kS]
-  bf16* vs = ks + kMmaKT * kS;                   // [kMmaKT][kS]
-  float* lse_s = reinterpret_cast<float*>(vs + kMmaKT * kS);
-  float* delta_s = lse_s + kMmaRows;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kRingRows][kS]
+  bf16* dos = qs + kRingRows * kS;               // [kRingRows][kS]
+  bf16* ks = dos + kRingRows * kS;               // [2][kKT][kS]
+  bf16* vs = ks + 2 * kKT * kS;                  // [2][kKT][kS]
+  bf16* dss = vs + 2 * kKT * kS;                 // [kRingRows][kSD]
+  float* lse_s = reinterpret_cast<float*>(dss + kRingRows * kSD);
+  float* delta_s = lse_s + kRingRows;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int qi0 = blockIdx.x * kMmaRows;
-  const int hq = blockIdx.y;
-  const int b = blockIdx.z;
+  // row tiles on the grid's slowest axis, last first: under a causal mask
+  // the last rows see the most keys, so the heaviest blocks go first
+  const int qi0 = (gridDim.z - 1 - blockIdx.z) * kRingRows;
+  const int hq = blockIdx.x;
+  const int b = blockIdx.y;
   const int g = p.Hq / p.Hkv;
   const int hk = hq / g;
   const int D = p.D;
-  const int nq = min(kMmaRows, p.Lq - qi0);
+  const int nq = min(kRingRows, p.Lq - qi0);
   const long long row0 = (static_cast<long long>(b) * p.Hq + hq) * p.Lq + qi0;
-  stage_bf16<kD>(qs, q + row0 * D, nq, kMmaRows, D);
-  stage_bf16<kD>(dos, dout + row0 * D, nq, kMmaRows, D);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < kMmaRows; i += kMmaThreads) {
-    lse_s[i] = i < nq ? lse[row0 + i] : 0.f;
-    delta_s[i] = i < nq ? delta[row0 + i] : 0.f;
-  }
+  ring_rows<kD, kRingRows>(qs, q + row0 * D, nq, D);
+  ring_rows<kD, kRingRows>(dos, dout + row0 * D, nq, D);
+  ring_vec<kRingRows>(lse_s, lse + row0, nq);
+  ring_vec<kRingRows>(delta_s, delta + row0, nq);
 
   int kb = 0;
   int ke = min(p.Lk, p.kv_valid);
   if (p.causal) ke = min(ke, p.q_offset + qi0 + nq - 1 - p.kv_offset + 1);
   if (p.window > 0) kb = max(kb, p.q_offset + qi0 - p.window + 1 - p.kv_offset);
-  kb = (kb / kMmaKT) * kMmaKT;
+  kb = (kb / kKT) * kKT;
+  const int ntiles = ke > kb ? (ke - kb + kKT - 1) / kKT : 0;
+  const long long kv_base = (static_cast<long long>(b) * p.Hkv + hk) * p.Lk * D;
+  auto load_tile = [&](int t, int st) {
+    const int j0 = kb + t * kKT;
+    const int nk = min(kKT, p.Lk - j0);
+    ring_rows<kD, kKT>(ks + st * kKT * kS, k + kv_base + static_cast<long long>(j0) * D, nk, D);
+    ring_rows<kD, kKT>(vs + st * kKT * kS, v + kv_base + static_cast<long long>(j0) * D, nk, D);
+  };
+  if (ntiles > 0) load_tile(0, 0);
+  cp_async_commit();  // Q, dO, lse, delta and the first key tile
 
-  float acc[kNT][4];
+  const int rw = (warp & 3) * 16;          // this warp's rows
+  const int kwq = (warp >> 2) * (kKT / 2);  // its keys of S
+  const int cw = (warp >> 2) * kHalf;       // its columns of dQ
+  float acc[kHalf / 8][4];
 #pragma unroll
-  for (int n = 0; n < kNT; ++n)
+  for (int n = 0; n < kHalf / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
-  const bf16* qw = qs + warp * 16 * kS;
-  const bf16* dw = dos + warp * 16 * kS;
-  const long long kv_base = (static_cast<long long>(b) * p.Hkv + hk) * p.Lk * D;
 
-  for (int j0 = kb; j0 < ke; j0 += kMmaKT) {
-    const int nk = min(kMmaKT, p.Lk - j0);
-    __syncthreads();  // the previous key tile is consumed
-    stage_bf16<kD>(ks, k + kv_base + static_cast<long long>(j0) * D, nk, kMmaKT, D);
-    stage_bf16<kD>(vs, v + kv_base + static_cast<long long>(j0) * D, nk, kMmaKT, D);
-    cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1;
     cp_async_wait_all();
-    __syncthreads();
-    float s[4][4], dp[4][4];
+    __syncthreads();  // key tile t has landed; tile t - 1 and dS are consumed
+    if (t + 1 < ntiles) load_tile(t + 1, st ^ 1);
+    cp_async_commit();
+    const int j0 = kb + t * kKT;
+    const int nk = min(kKT, p.Lk - j0);
+    const bf16* kt = ks + st * kKT * kS;
+    const bf16* vt = vs + st * kKT * kS;
+    float s[kKN8][4], dp[kKN8][4];
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
+    for (int n = 0; n < kKN8; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[t][c] = dp[t][c] = 0.f;
-    mma_abt<kD, 4>(s, qw, ks, lane);
-    mma_abt<kD, 4>(dp, dw, vs, lane);
-    // element (t, c): row warp * 16 + lane / 4 + 8 (c >> 1), key t * 8 +
-    // 2 (lane % 4) + (c & 1) of the tile
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+    mma_rows<kS, kKN8>(s, qs + rw * kS, kt + kwq * kS, D, lane);
+    mma_rows<kS, kKN8>(dp, dos + rw * kS, vt + kwq * kS, D, lane);
+    // element (n, c): row rw + lane / 4 + 8 (c >> 1), key kwq + 8 n + 2 (lane % 4) + (c & 1)
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
+    for (int n = 0; n < kKN8; ++n) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int il = warp * 16 + (lane >> 2) + 8 * (c >> 1);
-        const int jl = t * 8 + ((lane & 3) << 1) + (c & 1);
+        const int il = rw + (lane >> 2) + 8 * (c >> 1);
+        const int jl = kwq + n * 8 + ((lane & 3) << 1) + (c & 1);
         float pr = 0.f, ds = 0.f;
         if (il < nq && jl < nk && visible(p, qi0 + il, j0 + jl))
-          p_ds(p, s[t][c], dp[t][c], lse_s[il], delta_s[il], &pr, &ds);
-        s[t][c] = ds;
+          p_ds(p, s[n][c], dp[n][c], lse_s[il], delta_s[il], &pr, &ds);
+        s[n][c] = ds;
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int off = (rw + (lane >> 2) + 8 * hh) * kSD + kwq + n * 8 + ((lane & 3) << 1);
+        *reinterpret_cast<uint32_t*>(dss + off) = pack_bf16(s[n][2 * hh], s[n][2 * hh + 1]);
       }
     }
+    __syncthreads();  // dS of the whole tile is in
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
+    for (int kk = 0; kk < kKT / 16; ++kk) {
       uint32_t da[4];
-      acc_to_a(da, s[2 * kk], s[2 * kk + 1]);
-      mma_az<kD>(acc, da, ks + kk * 16 * kS, lane);
+      ldmatrix_x4(da, dss + (rw + (lane & 15)) * kSD + kk * 16 + (lane >> 4) * 8);
+      mma_frag_rows<kS, kHalf>(acc, da, kt + kk * 16 * kS + cw, D - cw, lane);
     }
   }
   cp_async_wait_all();
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int il = warp * 16 + (lane >> 2) + 8 * hh;
+    const int il = rw + (lane >> 2) + 8 * hh;
     if (il >= nq) continue;
 #pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + ((lane & 3) << 1) + e;
-        if (d < D) dq[(row0 + il) * D + d] = __float2bfloat16_rn(acc[n][2 * hh + e]);
-      }
+    for (int n = 0; n < kHalf / 8; ++n) {
+      const int d = cw + n * 8 + ((lane & 3) << 1);
+      if (d < D)
+        *reinterpret_cast<uint32_t*>(dq + (row0 + il) * D + d) =
+            pack_bf16(acc[n][2 * hh], acc[n][2 * hh + 1]);
     }
   }
+}
+
+// dk, dv = the head groups' float32 partials summed in group order, rounded
+// once to bf16; part holds [2][groups][n] (dk's, then dv's), 4 values a thread.
+__global__ void __launch_bounds__(256)
+flash_bwd_reduce_kernel(const float* __restrict__ part, int groups, long long n,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv) {
+  const long long i = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (i >= 2 * n) return;
+  const int which = i >= n ? 1 : 0;
+  const long long j = i - which * n;
+  const float* src = part + which * groups * n + j;
+  float4 s = *reinterpret_cast<const float4*>(src);
+  for (int gi = 1; gi < groups; ++gi) {
+    const float4 t = *reinterpret_cast<const float4*>(src + gi * n);
+    s.x += t.x;
+    s.y += t.y;
+    s.z += t.z;
+    s.w += t.w;
+  }
+  bf16* o = (which ? dv : dk) + j;
+  reinterpret_cast<uint32_t*>(o)[0] = pack_bf16(s.x, s.y);
+  reinterpret_cast<uint32_t*>(o)[1] = pack_bf16(s.z, s.w);
 }
 
 template <typename K>
@@ -707,33 +822,41 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kD>
-int launch_mma(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, void* dq, void* dk, void* dv, const Problem& p, int B,
-               cudaStream_t s) {
-  const size_t smem = mma_smem_bytes<kD>();
-  int e = allow_smem(flash_bwd_dkdv_mma_kernel<kD>, smem);
+template <int kD, int kQT, int kKT>
+int launch_ring(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                const float* delta, void* dq, void* dk, void* dv, float* part, int groups,
+                const Problem& p, int B, cudaStream_t s) {
+  const size_t smem_kv = ring_dkdv_smem_bytes<kD, kQT>();
+  const size_t smem_q = ring_dq_smem_bytes<kD, kKT>();
+  int e = allow_smem(flash_bwd_dkdv_ring_mma_kernel<kD, kQT>, smem_kv);
   if (e) return e;
-  e = allow_smem(flash_bwd_dq_mma_kernel<kD>, smem);
+  e = allow_smem(flash_bwd_dq_ring_mma_kernel<kD, kKT>, smem_q);
   if (e) return e;
-  const dim3 grid_kv((p.Lk + kMmaKeys - 1) / kMmaKeys, p.Hkv, B);
-  flash_bwd_dkdv_mma_kernel<kD><<<grid_kv, kMmaThreads, smem, s>>>(
+  const dim3 grid_kv(p.Hkv * groups, B, (p.Lk + kRingKeys - 1) / kRingKeys);
+  flash_bwd_dkdv_ring_mma_kernel<kD, kQT><<<grid_kv, kRingThreads, smem_kv, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      p);
+      part, groups, p);
   e = static_cast<int>(cudaGetLastError());
   if (e) return e;
-  const dim3 grid_q((p.Lq + kMmaRows - 1) / kMmaRows, p.Hq, B);
-  flash_bwd_dq_mma_kernel<kD><<<grid_q, kMmaThreads, smem, s>>>(
+  const dim3 grid_q(p.Hq, B, (p.Lq + kRingRows - 1) / kRingRows);
+  flash_bwd_dq_ring_mma_kernel<kD, kKT><<<grid_q, kRingThreads, smem_q, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), p);
+  e = static_cast<int>(cudaGetLastError());
+  if (e || groups == 1) return e;
+  const long long n = static_cast<long long>(B) * p.Hkv * p.Lk * p.D;
+  const long long blocks = (2 * n / 4 + 255) / 256;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_reduce_kernel<<<static_cast<unsigned>(blocks), 256, 0, s>>>(
+      part, groups, n, static_cast<bf16*>(dk), static_cast<bf16*>(dv));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_all(const void* q, const void* k, const void* v, const void* out, const void* dout,
-               const float* lse, float* delta, void* dq, void* dk, void* dv, const Problem& p,
-               int B, int path, cudaStream_t s) {
+               const float* lse, float* delta, void* dq, void* dk, void* dv, float* part,
+               int groups, const Problem& p, int B, int path, cudaStream_t s) {
   const long long rows = static_cast<long long>(B) * p.Hq * p.Lq;
   const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -742,8 +865,12 @@ int launch_all(const void* q, const void* k, const void* v, const void* out, con
   const int e = static_cast<int>(cudaGetLastError());
   if (e) return e;
   if (path == 1) {
-    if (p.D <= 64) return launch_mma<64>(q, k, v, dout, lse, delta, dq, dk, dv, p, B, s);
-    return launch_mma<128>(q, k, v, dout, lse, delta, dq, dk, dv, p, B, s);
+    if (p.D <= 64)
+      return launch_ring<64, 64, 64>(q, k, v, dout, lse, delta, dq, dk, dv, part, groups, p, B, s);
+    if (p.D <= 128)
+      return launch_ring<128, 64, 64>(q, k, v, dout, lse, delta, dq, dk, dv, part, groups, p, B,
+                                      s);
+    return launch_ring<256, 32, 32>(q, k, v, dout, lse, delta, dq, dk, dv, part, groups, p, B, s);
   }
   if (p.D <= 64) return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, p, B, s);
   if (p.D <= 128) return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, p, B, s);
@@ -755,25 +882,30 @@ int launch_all(const void* q, const void* k, const void* v, const void* out, con
 // q, out, dout, dq: (B, Hq, Lq, D); k, v, dk, dv: (B, Hkv, Lk, D); all
 // contiguous, one dtype: 0 = float32, 1 = bfloat16.  lse: (B, Hq, Lq)
 // float32, the forward's; delta: (B, Hq, Lq) float32 scratch.  path 1 =
-// tensor cores (bf16, D % 8 == 0, D <= 128, 16-byte aligned q/k/v/dout),
-// 0 = CUDA cores.  Returns cudaGetLastError() after the launches (or the
-// error that refused one).
+// tensor cores (bf16, D % 8 == 0, D <= 256, 16-byte aligned q/k/v/dout), 0
+// = CUDA cores.  groups: head groups per KV head in path 1's dK/dV kernel
+// (it divides Hq / Hkv; 1 on path 0); above 1, part is float32 scratch
+// of 2 * groups * B * Hkv * Lk * D, 16-byte aligned.  Returns
+// cudaGetLastError() after the launches (or the error that refused one).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int B, int Hq, int Hkv, int Lq, int Lk,
                                    int D, int q_offset, int kv_offset, int kv_valid_len,
                                    int causal, int window, float softcap, float scale, int dtype,
-                                   int path, void* stream) {
+                                   int path, int groups, void* part, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Lq <= 0 || Lk <= 0 || D <= 0 ||
       D > kMaxD || kv_valid_len <= 0 || Hq > 65535 || B > 65535 || (dtype != 0 && dtype != 1) ||
-      (path != 0 && path != 1)) {
+      path < 0 || path > 1 || groups < 1 || (Hq / Hkv) % groups != 0 ||
+      (path == 1 && ((Lk + 63) / 64 > 65535 || (Lq + 63) / 64 > 65535))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto aligned16 = [](const void* ptr) {
     return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
   };
-  if (path == 1 && (dtype != 1 || D % 8 != 0 || D > 128 || !aligned16(q) || !aligned16(k) ||
+  if (path == 1 && (dtype != 1 || D % 8 != 0 || D > 256 || !aligned16(q) || !aligned16(k) ||
                     !aligned16(v) || !aligned16(dout)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (groups > 1 && (path != 1 || part == nullptr || !aligned16(part)))
     return static_cast<int>(cudaErrorInvalidValue);
   Problem p;
   p.Hq = Hq;
@@ -791,7 +923,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  float* pt = static_cast<float*>(part);
   if (dtype == 0)
-    return launch_all<float>(q, k, v, out, dout, l, dl, dq, dk, dv, p, B, path, s);
-  return launch_all<__nv_bfloat16>(q, k, v, out, dout, l, dl, dq, dk, dv, p, B, path, s);
+    return launch_all<float>(q, k, v, out, dout, l, dl, dq, dk, dv, pt, groups, p, B, path, s);
+  return launch_all<__nv_bfloat16>(q, k, v, out, dout, l, dl, dq, dk, dv, pt, groups, p, B, path,
+                                   s);
 }

@@ -31,6 +31,10 @@ gradient: its forward saves q, k, v, out and lse, and its backward,
 :func:`flash_attention_bwd`, launches ``csrc/flash_attention_bwd.cu``
 for tensors on the card and runs :func:`flash_attention_bwd_plain` (the
 reference's ``_flash_bwd``, step for step) for tensors on the CPU.
+:func:`flash_bwd_plan` picks the backward's design (bf16 at D up to 256
+on the tensor cores) and cuts each KV head's query heads into head groups
+from the shape alone; :func:`flash_attention_bwd_grouped_plain` is the
+groups' algebra in plain torch.
 """
 from __future__ import annotations
 
@@ -45,9 +49,10 @@ import torch
 from .. import _cuda
 from ..models.common import _IMAX, NEG_INF, _apply_softcap, _mask_for, chunked_attention
 
-__all__ = ["FlashAttentionFn", "FlashPlan", "bwd_path", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "flash_attention_plain", "flash_merge_plain",
-           "flash_partial_plain", "flash_plan", "split_ranges"]
+__all__ = ["FlashAttentionFn", "FlashBwdPlan", "FlashPlan", "bwd_path", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_grouped_plain",
+           "flash_attention_bwd_plain", "flash_attention_plain", "flash_bwd_plan",
+           "flash_merge_plain", "flash_partial_plain", "flash_plan", "split_ranges"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
@@ -70,10 +75,19 @@ _BWD_SIG = {
         *[ctypes.c_void_p] * 10,
         *[ctypes.c_int] * 11,
         ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]),
 }
+#: the backward's designs by the C entry point's ``path``: "mma" the
+#: tensor cores (bf16, D <= 256), "fma" the CUDA cores
+_BWD_DESIGNS = {"fma": 0, "mma": 1}
+#: keys per dK/dV block and query rows per dQ block of each design
+#: (``kRingKeys``, ``kRingRows``; ``kBK``, ``kBQ``)
+_BWD_TILES = {"mma": (64, 64), "fma": (32, 32)}
+#: dK/dV blocks the head-group split aims for (a fixed number, not the
+#: card's SM count, so the sums are the same on every card)
+BWD_TARGET_BLOCKS = 128
 #: most key ranges one call splits into (the merge kernel's limit)
 MAX_SPLITS = 256
 
@@ -386,16 +400,92 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True, window=0,
 
 def bwd_path(dtype, D: int, aligned: bool = True) -> str:
     """The backward kernel's design for one call: "mma" (bf16 on the
-    tensor cores: D a multiple of 8 up to 128, 16-byte aligned operands)
+    tensor cores: D a multiple of 8 up to 256, 16-byte aligned operands)
     or "fma" (CUDA cores: float32, other widths)."""
-    return "mma" if dtype == torch.bfloat16 and D % 8 == 0 and D <= 128 and aligned else "fma"
+    return "mma" if dtype == torch.bfloat16 and D % 8 == 0 and D <= _MAX_D and aligned else "fma"
 
 
-def _flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal, window, softcap, scale,
-                              q_offset, kv_offset, kv_valid_len):
-    """Launch ``csrc/flash_attention_bwd.cu`` on the current stream: the
-    delta pass, the dK/dV kernel and the dQ kernel, on the design
-    :func:`bwd_path` picks."""
+@dataclasses.dataclass(frozen=True)
+class FlashBwdPlan:
+    """How the backward covers one call: ``path`` (a key of
+    ``_BWD_DESIGNS``); the dK/dV kernel's ``key_tiles`` tiles of
+    ``block_keys`` keys per (batch, KV head), each KV head's G query heads
+    cut into ``groups`` groups of ``heads_per_group``; the dQ kernel's
+    ``row_tiles`` tiles of ``block_rows`` rows per query head."""
+
+    path: str
+    block_keys: int
+    key_tiles: int
+    groups: int
+    heads_per_group: int
+    block_rows: int
+    row_tiles: int
+
+    def dkdv_blocks(self, B: int, Hkv: int) -> int:
+        return self.key_tiles * B * Hkv * self.groups
+
+    def dq_blocks(self, B: int, Hq: int) -> int:
+        return self.row_tiles * B * Hq
+
+    def scratch_floats(self, B: int, Hkv: int, Lk: int, D: int) -> int:
+        """float32 partials of dk and dv the caller allocates (0 for one
+        group: the dK/dV kernel then writes dk and dv itself)."""
+        return 2 * self.groups * B * Hkv * Lk * D if self.groups > 1 else 0
+
+
+def flash_bwd_plan(dtype, B, Hq, Hkv, Lq, Lk, D, *, aligned=True, design=None) -> FlashBwdPlan:
+    """The backward's design and head-group plan for one call, from the
+    shape alone.  ``design`` overrides :func:`bwd_path` (to time another
+    design on the same inputs).  On the "mma" design a KV head's G query
+    heads are cut into the fewest groups (a divisor of G) whose dK/dV
+    blocks reach ``BWD_TARGET_BLOCKS``, else into G groups of one head;
+    each group's float32 partials are summed in group order by a third
+    kernel.  Other designs take one group."""
+    path = design or bwd_path(dtype, D, aligned)
+    if path not in _BWD_DESIGNS:
+        raise ValueError(f"unknown backward design {path!r}")
+    bk, br = _BWD_TILES[path]
+    g = Hq // Hkv
+    key_tiles = -(-Lk // bk)
+    groups = 1
+    if path == "mma":
+        base = key_tiles * B * Hkv
+        groups = next((d for d in range(1, g + 1) if g % d == 0
+                       and base * d >= BWD_TARGET_BLOCKS), g)
+    return FlashBwdPlan(path, bk, key_tiles, groups, g // groups, br, -(-Lq // br))
+
+
+def flash_attention_bwd_grouped_plain(q, k, v, out, lse, dout, groups: int, **kw):
+    """The head-group algebra of the "mma" design in plain torch: each
+    group's heads give float32 partials of dk and dv (their dq is exact),
+    summed in group order and rounded once to the inputs' dtype.  Equal to
+    :func:`flash_attention_bwd_plain` up to float32 summation order."""
+    b, hq, lq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    if groups < 1 or g % groups:
+        raise ValueError(f"{groups} groups do not divide {g} query heads per KV head")
+    hpg = g // groups
+
+    def heads(t, gi):
+        return t.reshape(b, hkv, g, *t.shape[2:])[:, :, gi * hpg:(gi + 1) * hpg].reshape(
+            b, hkv * hpg, *t.shape[2:])
+
+    dqs, dk, dv = [], None, None
+    for gi in range(groups):
+        dq_g, dk_g, dv_g = flash_attention_bwd_plain(
+            heads(q, gi).float(), k.float(), v.float(), heads(out, gi).float(), heads(lse, gi),
+            heads(dout, gi).float(), **kw)
+        dqs.append(dq_g.reshape(b, hkv, hpg, lq, d))
+        dk = dk_g if dk is None else dk + dk_g
+        dv = dv_g if dv is None else dv + dv_g
+    dq = torch.cat(dqs, dim=2).reshape(b, hq, lq, d)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_checked(q, k, v, out, lse, dout, kv_valid_len, design=None):
+    """The backward kernel's operand rules, checked before anything is
+    built or launched; returns ``(valid, plan)``."""
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, out, dout)):
         raise TypeError(
             f"flash_attention_bwd takes float32 or bfloat16 q/k/v/out/dout of one dtype, "
@@ -422,20 +512,37 @@ def _flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal, window, softca
     valid = Lk if kv_valid_len is None else min(int(kv_valid_len), Lk)
     if valid < 1:
         raise ValueError(f"kv_valid_len must be >= 1, got {kv_valid_len}")
+    aligned = all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v, dout))
+    plan = flash_bwd_plan(q.dtype, B, Hq, Hkv, Lq, Lk, D, aligned=aligned, design=design)
+    if plan.path == "mma" and bwd_path(q.dtype, D, aligned) != "mma":
+        raise ValueError(f"the mma design takes 16-byte aligned bf16 with D a multiple of 8 "
+                         f"up to {_MAX_D}, got {q.dtype} D={D}")
+    return valid, plan
+
+
+def _flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal, window, softcap, scale,
+                              q_offset, kv_offset, kv_valid_len, design=None):
+    """Launch ``csrc/flash_attention_bwd.cu`` on the current stream: the
+    delta pass, the dK/dV kernel and the dQ kernel (and the head groups'
+    sum), on the design :func:`flash_bwd_plan` picks, or ``design``."""
     q, k, v, out, lse, dout = (t.contiguous() for t in (q, k, v, out, lse, dout))
+    valid, plan = _bwd_checked(q, k, v, out, lse, dout, kv_valid_len, design)
+    B, Hq, Lq, D = q.shape
+    _, Hkv, Lk, _ = k.shape
     sc = scale if scale is not None else D ** -0.5
-    aligned = (q.data_ptr() | k.data_ptr() | v.data_ptr() | dout.data_ptr()) % 16 == 0
-    path = bwd_path(q.dtype, D, aligned)
     dev = q.get_device()
     lib = _cuda.load("flash_attention_bwd", _BWD_SIG)
     delta = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    n_part = plan.scratch_floats(B, Hkv, Lk, D)
+    part = torch.empty(n_part, dtype=torch.float32, device=q.device) if n_part else None
     err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, Hq, Hkv, Lq, Lk, D, int(q_offset), int(kv_offset), valid,
         int(bool(causal)), int(window), float(softcap), float(sc), _DTYPES[q.dtype],
-        int(path == "mma"), torch.cuda.current_stream(dev).cuda_stream,
+        _BWD_DESIGNS[plan.path], plan.groups, None if part is None else part.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")

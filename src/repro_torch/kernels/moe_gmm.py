@@ -16,7 +16,10 @@ may round the other way than the plain version's.
 
 The backward (``csrc/moe_gmm_bwd.cu``, :func:`moe_gmm_bwd`) recomputes
 ``h``, ``u`` and ``a`` and returns ``(dx, dwg, dwu, dwd)`` in the inputs'
-dtype, every product a float32 sum over a fixed order;
+dtype, every product a float32 sum over a fixed order: in bf16 (D and F
+multiples of 8, :func:`moe_bwd_path`) on the tensor cores, with ``dh``
+and ``du`` rounded once to bf16 as the tensor cores' operands (as the
+reference's bf16 gradient forms them); in float32 on the CUDA cores.
 :class:`MoeGmmFn` wires forward and backward for autograd.
 """
 from __future__ import annotations
@@ -28,8 +31,8 @@ import torch.nn.functional as F
 
 from .. import _cuda
 
-__all__ = ["moe_gmm", "moe_gmm_oracle64", "moe_gmm_plain", "moe_gmm_bwd", "moe_gmm_bwd_plain",
-           "MoeGmmFn"]
+__all__ = ["moe_bwd_path", "moe_gmm", "moe_gmm_oracle64", "moe_gmm_plain", "moe_gmm_bwd",
+           "moe_gmm_bwd_plain", "MoeGmmFn"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -42,9 +45,11 @@ _SIG = {
     ]),
 }
 _BWD_SIG = {
-    "moe_gmm_bwd": (ctypes.c_int, [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+    "moe_gmm_bwd": (ctypes.c_int, [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p]),
 }
+#: the backward's designs by the C entry point's ``path``
+_BWD_DESIGNS = {"fma": 0, "mma": 1}
 
 
 def moe_gmm_plain(x, wg, wu, wd):
@@ -149,21 +154,45 @@ def moe_gmm(x, wg, wu, wd):
 moe_gmm.launches = 0
 
 
-def _moe_gmm_bwd_cuda(x, wg, wu, wd, dy):
-    """Launch ``csrc/moe_gmm_bwd.cu`` on the current stream."""
+def moe_bwd_path(dtype, D: int, F: int, aligned: bool = True) -> str:
+    """The backward kernel's design for one call: "mma" (bf16 on the
+    tensor cores: D and F multiples of 8, 16-byte aligned operands) or
+    "fma" (CUDA cores: float32, other shapes)."""
+    return "mma" if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 and aligned else "fma"
+
+
+def _bwd_checked(x, wg, wu, wd, dy, design=None):
+    """The backward kernel's operand rules, checked before anything is
+    built or launched; returns ``(E, C, D, F, path)``."""
     E, C, D, Fd = _check(x, wg, wu, wd, "moe_gmm_bwd")
     if dy.dtype != x.dtype or tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
         raise ValueError(f"moe_gmm_bwd: dy must be shaped, typed and placed as x "
                          f"{tuple(x.shape)} {x.dtype}, got {tuple(dy.shape)} {dy.dtype}")
+    aligned = all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (x, wg, wu, wd, dy))
+    path = design or moe_bwd_path(x.dtype, D, Fd, aligned)
+    if path not in _BWD_DESIGNS:
+        raise ValueError(f"unknown moe_gmm_bwd design {path!r}")
+    if path == "mma" and moe_bwd_path(x.dtype, D, Fd, aligned) != "mma":
+        raise ValueError(f"the mma design takes 16-byte aligned bf16 with D and F multiples "
+                         f"of 8, got {x.dtype} D={D} F={Fd}")
+    return E, C, D, Fd, path
+
+
+def _moe_gmm_bwd_cuda(x, wg, wu, wd, dy, design=None):
+    """Launch ``csrc/moe_gmm_bwd.cu`` on the current stream, on the design
+    :func:`moe_bwd_path` picks, or ``design``."""
     x, dy = x.contiguous(), dy.contiguous()
+    E, C, D, Fd, path = _bwd_checked(x, wg, wu, wd, dy, design)
     lib = _cuda.load("moe_gmm_bwd", _BWD_SIG)
     dx, dwg, dwu, dwd = (torch.empty_like(t) for t in (x, wg, wu, wd))
-    a, dh, du = torch.empty((3, E, C, Fd), dtype=torch.float32, device=x.device)
+    # scratch: bf16 on the tensor cores (their operands), float32 otherwise
+    sdt = torch.bfloat16 if path == "mma" else torch.float32
+    a, dh, du = torch.empty((3, E, C, Fd), dtype=sdt, device=x.device)
     err = lib.moe_gmm_bwd(
         x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), dy.data_ptr(),
         dx.data_ptr(), dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(),
         a.data_ptr(), dh.data_ptr(), du.data_ptr(), E, C, D, Fd, _DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _BWD_DESIGNS[path], torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"moe_gmm_bwd launch failed: CUDA error {err}")

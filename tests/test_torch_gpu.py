@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels (ladder grant, the fused EDF
 allocator, flash attention,
 MoE grouped matmul, SSD intra-chunk, RG-LRU scan, and the backwards of
-the last four) against their plain
+the last four; the two tensor-core backwards also repeat bit for bit and
+keep the designs they replace launchable) against their plain
 versions, the torch sampler,
 round loop, LM (every arch's stack and frontend, reduced; the MoE, SSM
 and hybrid stacks' gradients) and serving
@@ -582,9 +583,14 @@ def test_serving_engine_on_cuda_matches_cpu_tokens(cuda):
     (2, 24, 8, 40, 40, 128, 0, 40, 0, 0.0),         # a ragged row tile
     (1, 6, 2, 33, 70, 64, 37, 70, 16, 30.0),        # offsets, window, softcap
     (1, 4, 1, 50, 50, 256, 0, 50, 0, 0.0),          # D = 256
+    (8, 16, 1, 128, 128, 256, 0, 128, 2048, 0.0),   # recurrentgemma's train shape: 8 head groups
+    (2, 32, 8, 40, 40, 160, 0, 40, 0, 0.0),         # stablelm's D = 160
+    (1, 16, 16, 70, 70, 192, 0, 70, 0, 0.0),        # MLA's D = 192
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Lq, Lk, D, qo, kvl,
                                                   w, cap):
+    if dtype == torch.bfloat16:
+        assert FA.bwd_path(dtype, D) == "mma"
     g = torch.Generator(device=cuda).manual_seed(Lq + D)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
                for s in ((B, Hq, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D)))
@@ -602,6 +608,40 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Lq, L
     for a, b in zip(got, want):
         assert a.dtype == dtype
         torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+@pytest.mark.parametrize("B, Hq, Hkv, L, D", [(8, 16, 1, 128, 256), (8, 24, 8, 128, 128),
+                                               (1, 16, 1, 300, 192)])
+def test_flash_attention_bwd_kernel_repeats_bit_for_bit(cuda, B, Hq, Hkv, L, D):
+    """Two calls on the same inputs give the same bits (no atomics; the head
+    groups' partials are summed in a fixed order)."""
+    g = torch.Generator(device=cuda).manual_seed(L + D)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((B, Hq, L, D), (B, Hkv, L, D), (B, Hkv, L, D)))
+    out, lse = FA.flash_attention(q, k, v, return_lse=True, window=2048)
+    dout = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16)
+    first = FA.flash_attention_bwd(q, k, v, out, lse, dout, window=2048)
+    second = FA.flash_attention_bwd(q, k, v, out, lse, dout, window=2048)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_attention_bwd_cuda_core_design_matches_plain(cuda, D):
+    """The CUDA-core design, launched by name in bf16 (the timing phase
+    compares it with the tensor cores in the same call), gives the plain
+    answer."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((2, 6, 70, D), (2, 2, 70, D), (2, 2, 70, D)))
+    out, lse = FA.flash_attention(q, k, v, return_lse=True)
+    dout = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16)
+    got = FA._flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True, window=0,
+                                       softcap=0.0, scale=None, q_offset=0, kv_offset=0,
+                                       kv_valid_len=None, design="fma")
+    for a, b in zip(got, FA.flash_attention_bwd_plain(q, k, v, out, lse, dout)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
 
 
 def test_train_step_gives_every_leaf_a_gradient(cuda):
@@ -661,6 +701,28 @@ def test_moe_gmm_bwd_kernel_matches_plain(cuda, dtype, E, C, D, F):
     for a, b in zip(got, MG.moe_gmm_bwd_plain(x, wg, wu, wd, dy)):
         assert a.dtype == dtype and a.shape == b.shape
         assert _rel_max(a, b) <= TOL_BWD_MAX[dtype]
+
+
+@pytest.mark.parametrize("E, C, D, F", [(4, 320, 1024, 512), (2, 8, 5120, 1536),
+                                        (3, 70, 40, 72)])
+def test_moe_gmm_bwd_kernel_repeats_bit_for_bit(cuda, E, C, D, F):
+    """bf16 on the tensor cores: two calls give the same bits (every dW tile
+    sums its C bucket rows inside one block), and the CUDA-core design it
+    replaces, launched by name, gives the plain answer too."""
+    assert MG.moe_bwd_path(torch.bfloat16, D, F) == "mma"
+    g = torch.Generator(device=cuda).manual_seed(E + C + D)
+    x, dy = (torch.randn((E, C, D), generator=g, device=cuda).to(torch.bfloat16)
+             for _ in range(2))
+    wg, wu = (torch.randn((E, D, F), generator=g, device=cuda).mul(D ** -0.5).to(torch.bfloat16)
+              for _ in range(2))
+    wd = torch.randn((E, F, D), generator=g, device=cuda).mul(F ** -0.5).to(torch.bfloat16)
+    first = MG.moe_gmm_bwd(x, wg, wu, wd, dy)
+    second = MG.moe_gmm_bwd(x, wg, wu, wd, dy)
+    fma = MG._moe_gmm_bwd_cuda(x, wg, wu, wd, dy, design="fma")
+    torch.cuda.synchronize()
+    for a, b, c, w in zip(first, second, fma, MG.moe_gmm_bwd_plain(x, wg, wu, wd, dy)):
+        assert torch.equal(a, b)
+        assert _rel_max(c, w) <= TOL_BWD_MAX[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
