@@ -38,8 +38,11 @@ Phases, each printing one JSON line:
    C = 320, deepseek's D 5120 / F 1536 at a small C, mamba2's one chunk of
    128 and four of 256, recurrentgemma's (8, 128, 4096) and L = 13 / 2047 /
    2049), in bf16 and f32, each gradient to a share of its largest entry
-   (``TOL_BWD_MAX``), and ``ops.ssd_chunked``'s gradients on the card
-   against the CPU at four chunks of 256;
+   (``TOL_BWD_MAX``; the SSD backward under every combination of its three
+   gradients; the designs each bf16 call takes asserted, the designs they
+   replaced launched by name on the same inputs, a repeated call
+   bit-equal), and ``ops.ssd_chunked``'s gradients on the card against the
+   CPU at four chunks of 256;
 4. ``sampler`` — the torch trace sampler on the card against the NumPy
    host path (R=1024, ``rtol=1e-12``);
 5. ``main``    — ``run(commute, ads_tile, cockpit_replicas=4, seeds=range
@@ -110,8 +113,9 @@ Phases, each printing one JSON line:
    checkpoint save and resume in bf16 whose next loss equals the
    uninterrupted run's bit for bit;
 13. ``timing`` — kernel, plain-version, library and bound times at each
-   path's shapes (the backward kernels at the train shapes), then the
-   ``kernels`` line; ``moe_gmm`` is also held on
+   path's shapes (the backward kernels at the train shapes, the SSD and
+   RG-LRU ones beside the designs they replaced and with the L2 flushed
+   between calls), then the ``kernels`` line; ``moe_gmm`` is also held on
    granite-moe's own expert weights against the float32 references and a
    float64 oracle (``TOL_MOE_MODEL``), and with ``--moe-baseline
    OTHER/moe_gmm.cu`` another build of it is timed beside this one and
@@ -335,24 +339,28 @@ def phase_build():
                     if any(w in ln for w in keep)]
                 for k, v in _cuda.BUILD_LOG.items()})
     for name in ("flash_attention", "flash_attention_bwd", "moe_gmm", "moe_gmm_bwd",
-                 "ssd_intra_chunk"):
+                 "ssd_intra_chunk", "ssd_intra_chunk_bwd"):
         counts = sass_counts(libs[name])
         emit("sass", kernel=name, functions=counts)
         mma = [f for f in counts if "mma_kernel" in f]
-        check(mma and all(counts[f]["HMMA"] > 0 and counts[f]["LDSM"] > 0
-                          and counts[f]["LDGSTS"] > 0 for f in mma),
-              f"{name}: a tensor-core kernel lacks HMMA / LDSM / LDGSTS: {counts}")
-    # registers and spills of every tensor-core kernel (ptxas's report of
-    # this build); the backwards' must not spill
-    spills = {name: {f: sp for f, sp in ptxas_spills(log).items() if "mma_kernel" in f}
+        # the SSD backward's kernels stage by cp.async (main, dB / dC) or by
+        # registers (the sum kernel's contrib GEMM): HMMA and LDSM in each
+        ops = ("HMMA", "LDSM") if name == "ssd_intra_chunk_bwd" else ("HMMA", "LDSM", "LDGSTS")
+        check(mma and all(counts[f][op] > 0 for f in mma for op in ops),
+              f"{name}: a tensor-core kernel lacks {' / '.join(ops)}: {counts}")
+    # registers and spills of every tensor-core kernel and of the RG-LRU
+    # backward's vectorised one (ptxas's report of this build); the
+    # backwards' must not spill
+    bwd = ("flash_attention_bwd", "moe_gmm_bwd", "ssd_intra_chunk_bwd", "rglru_scan_bwd")
+    spills = {name: {f: sp for f, sp in ptxas_spills(log).items()
+                     if "mma_kernel" in f or "vec_kernel" in f}
               for name, log in _cuda.BUILD_LOG.items()}
     emit("spills", mma_functions=sum(map(len, spills.values())),
          spilling={f: sp[:2] for per in spills.values() for f, sp in per.items() if any(sp[:2])},
-         bwd_registers={_short(f): sp[2] for name in ("flash_attention_bwd", "moe_gmm_bwd")
+         bwd_registers={_short(f): sp[2] for name in bwd
                         for f, sp in spills.get(name, {}).items()})
-    bad = [f for name in ("flash_attention_bwd", "moe_gmm_bwd")
-           for f, sp in spills.get(name, {}).items() if any(sp[:2])]
-    check(not bad, f"a tensor-core backward kernel spills: {bad}")
+    bad = [f for name in bwd for f, sp in spills.get(name, {}).items() if any(sp[:2])]
+    check(not bad, f"a backward kernel spills: {bad}")
 
 
 def ptxas_spills(log):
@@ -374,7 +382,7 @@ def ptxas_spills(log):
 
 def _short(fn):
     """A mangled kernel name cut to its own name and template arguments."""
-    m = re.search(r"\d+((?:flash|moe)_\w*?kernel)(\w*)", fn)
+    m = re.search(r"\d+((?:flash|moe|ssd|rglru)_\w*?kernel)(\w*)", fn)
     if not m:
         return fn
     args = re.findall(r"Li(\d+)E", m.group(2).split("Ev")[0])
@@ -934,12 +942,20 @@ def _train_bwd_kernel_checks(errs):
          tol_of_max={str(k)[6:]: v for k, v in TOL_BWD_MAX.items()},
          max_abs_err=max(errs["moe_gmm_bwd"]), max_abs_err_by_case=res)
 
-    res = {}
+    res, paths = {}, {}
     for i, (name, B, L, H, P, N, chunk) in enumerate(SSD_BWD_CASES):
         for dtype in DTYPES:
             args, grads = ssd_bwd_inputs(B, L, H, P, N, chunk, dtype, seed=1700 + 10 * i)
-            # every gradient given, and y's alone (the one-chunk train step)
-            for tag, gs in (("all", grads), ("y_only", (grads[0], None, None))):
+            _, nb, c, _, _ = args[0].shape
+            path = SSD.ssd_bwd_path(dtype, c, P, N)
+            paths[f"{name}/{str(dtype)[6:]}"] = path
+            check(path == ("mma" if dtype == torch.bfloat16 and P >= 8 else "fma"),
+                  f"ssd_intra_chunk_bwd {name} {dtype}: design {path}")
+            # every combination of the three gradients (None: zero)
+            for mask in range(1, 8):
+                gs = tuple(g if mask >> k & 1 else None for k, g in enumerate(grads))
+                tag = "+".join(n_ for k, n_ in enumerate(("dy", "dcontrib", "ddecay"))
+                               if mask >> k & 1)
                 before = SSD.ssd_intra_chunk_bwd.launches
                 got = SSD.ssd_intra_chunk_bwd(*args, *gs)
                 check(SSD.ssd_intra_chunk_bwd.launches == before + 1,
@@ -947,8 +963,24 @@ def _train_bwd_kernel_checks(errs):
                 want = SSD.ssd_intra_chunk_bwd_plain(*args, *gs)
                 err = max(_held_max(g, w, dtype, f"ssd_intra_chunk_bwd {name} {tag} {dtype} {p}")
                           for g, w, p in zip(got, want, ("dx", "ddt", "dA", "dB", "dC")))
+                if mask == 7:
+                    # a second call on the same inputs gives the same bits (no atomics)
+                    again = SSD.ssd_intra_chunk_bwd(*args, *gs)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"ssd_intra_chunk_bwd {name} {dtype}: two calls differ")
+                    del again
                 errs["ssd_intra_chunk_bwd"].append(err)
                 res[f"{name}/{tag}/{str(dtype)[6:]}"] = err
+            if dtype == torch.bfloat16 and path == "mma":
+                # the design it replaced, launched by name on the same inputs
+                got = SSD._ssd_intra_chunk_bwd_cuda(*args, *grads, design="fma")
+                want = SSD.ssd_intra_chunk_bwd_plain(*args, *grads)
+                err = max(_held_max(g, w, dtype, f"ssd_intra_chunk_bwd {name} fma {p}")
+                          for g, w, p in zip(got, want, ("dx", "ddt", "dA", "dB", "dC")))
+                errs["ssd_intra_chunk_bwd"].append(err)
+                res[f"{name}/fma_design/bfloat16"] = err
+            del args, grads
     # the op under autograd, four chunks of 256 at mamba2's width, float32:
     # the card (kernels) against the CPU (plain versions), gradients of y
     # and of the final state
@@ -963,15 +995,19 @@ def _train_bwd_kernel_checks(errs):
         grads[dev] = [leaf.grad.cpu() for leaf in leaves]
     xerr = max(_held_max(a.cuda(), b.cuda(), torch.float32, f"ssd_chunked grad {p} card vs CPU")
                for a, b, p in zip(grads["cuda"], grads["cpu"], ("x", "dt", "A", "B", "C")))
-    emit("kernel", name="ssd_intra_chunk_bwd", cases=len(res),
-         tol_of_max={str(k)[6:]: v for k, v in TOL_BWD_MAX.items()},
+    emit("kernel", name="ssd_intra_chunk_bwd", cases=len(res), design_by_case=paths,
+         bf16_bit_equal_repeat=True, tol_of_max={str(k)[6:]: v for k, v in TOL_BWD_MAX.items()},
          max_abs_err=max(errs["ssd_intra_chunk_bwd"]), max_abs_err_by_case=res,
          ssd_chunked_grads_card_vs_cpu_max_abs_err=xerr)
 
-    res = {}
+    res, paths = {}, {}
     for i, (name, B, L, W) in enumerate(RGLRU_BWD_CASES):
         for dtype in DTYPES:
             args, out, dh, dht = rglru_bwd_inputs(B, L, W, dtype, seed=1600 + 10 * i)
+            path = RG.rglru_bwd_path(dtype, W)
+            paths[f"{name}/{str(dtype)[6:]}"] = path
+            check(path == ("vec" if dtype == torch.bfloat16 and W % 8 == 0 else "scalar"),
+                  f"rglru_scan_bwd {name} {dtype}: design {path}")
             for tag, gt in (("with_hT", dht), ("h_only", None)):
                 before = RG.rglru_scan_bwd.launches
                 got = RG.rglru_scan_bwd(*args, out, dh, gt)
@@ -980,9 +1016,21 @@ def _train_bwd_kernel_checks(errs):
                 want = RG.rglru_scan_bwd_plain(*args, out, dh, gt)
                 err = max(_held_max(g, w, dtype, f"rglru_scan_bwd {name} {tag} {dtype} {p}")
                           for g, w, p in zip(got, want, ("dx", "dr", "di", "dlam", "dh0")))
+                if gt is not None:
+                    again = RG.rglru_scan_bwd(*args, out, dh, gt)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"rglru_scan_bwd {name} {dtype}: two calls differ")
+                    if path == "vec":
+                        # the design it replaced, launched by name on the same inputs
+                        old_ = RG._rglru_scan_bwd_cuda(*args, out, dh, gt, design="scalar")
+                        err = max(err, max(
+                            _held_max(g, w, dtype, f"rglru_scan_bwd {name} scalar {p}")
+                            for g, w, p in zip(old_, want, ("dx", "dr", "di", "dlam", "dh0"))))
                 errs["rglru_scan_bwd"].append(err)
                 res[f"{name}/{tag}/{str(dtype)[6:]}"] = err
-    emit("kernel", name="rglru_scan_bwd", cases=len(res),
+    emit("kernel", name="rglru_scan_bwd", cases=len(res), design_by_case=paths,
+         bit_equal_repeat=True,
          tol_of_max={str(k)[6:]: v for k, v in TOL_BWD_MAX.items()},
          max_abs_err=max(errs["rglru_scan_bwd"]), max_abs_err_by_case=res)
 
@@ -2064,15 +2112,15 @@ BWD_OF = {"flash_attention": "flash_attention_bwd", "moe_gmm": "moe_gmm_bwd",
           "ssd_intra_chunk": "ssd_intra_chunk_bwd", "rglru_scan": "rglru_scan_bwd"}
 #: counted kernel -> substrings of its device kernels' names in a train
 #: step: the first counts the calls (one device kernel per call), the rest
-#: add their time (bf16 at seq 128: SSD's tensor-core forward, RG-LRU's
-#: chunked forward)
+#: add their time (bf16 at seq 128: SSD's tensor-core forward and backward,
+#: RG-LRU's chunked forward and vectorised backward)
 TRAIN_KERNELS = {"flash_attention": ("flash_fwd_", "flash_merge_"),
                  "flash_attention_bwd": ("flash_bwd_delta", "flash_bwd_"),
                  "moe_gmm": ("moe_gmm_",), "moe_gmm_bwd": ("moe_bwd_hidden", "moe_bwd_"),
                  "ssd_intra_chunk": ("ssd_mma_kernel",),
-                 "ssd_intra_chunk_bwd": ("ssd_bwd_prep", "ssd_bwd_"),
+                 "ssd_intra_chunk_bwd": ("ssd_bwd_main_mma_kernel", "ssd_bwd_"),
                  "rglru_scan": ("rglru_chunked_kernel",),
-                 "rglru_scan_bwd": ("rglru_bwd_kernel<", "rglru_bwd_")}
+                 "rglru_scan_bwd": ("rglru_bwd_vec_kernel", "rglru_bwd_")}
 
 
 #: device kernels by class, for the train step's breakdown (first match)
@@ -2799,10 +2847,48 @@ def _moe_bwd_timing(launches, per_step, errs):
                     "granite_train_c320")
 
 
+#: a buffer past the 50 MB L2, written between calls to time a kernel with
+#: its inputs cold (as they arrive in a train step)
+_L2_FLUSH = []
+
+
+def l2_cold_ms(fn, iters=10):
+    """Device ms per call with the L2 flushed before each call: CUDA events
+    around each call alone, a 256 MB write between calls."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda"))
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(iters)]
+    for a, b in ev:
+        _L2_FLUSH[0].zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / iters
+
+
+def _with_replaced(out, call, old_call, per_call, old_per_call, what):
+    """Device ms (warm, by kernel; L2-cold) of ``call`` and of the design it
+    replaced, ``old_call``, on the same inputs in this call; the new design
+    must beat the old on device ms."""
+    dev, split = device_ms_checked(call, per_call)
+    out.update(device_ms=dev, device_ms_by_kernel=split, l2_cold_ms=l2_cold_ms(call))
+    odev, osplit = device_ms_checked(old_call, old_per_call)
+    out["replaced_designs"] = {what: dict(ms=cuda_ms(old_call, iters=10, warmup=2),
+                                          device_ms=odev, device_ms_by_kernel=osplit,
+                                          l2_cold_ms=l2_cold_ms(old_call, iters=5))}
+    return dev, odev
+
+
 def _ssd_bwd_timing(launches, per_step, errs):
     """At mamba2-2.7b's train shapes: batch 8 x seq 128 (one chunk of 128,
     y's gradient alone, as the step gives it: the kernels-line row) and
-    batch 2 x seq 1024 (four chunks of 256, all three gradients)."""
+    batch 2 x seq 1024 (four chunks of 256, all three gradients); the
+    CUDA-core design it replaced timed on the same inputs, warm and with the
+    L2 flushed between calls."""
     out = {}
     for (name, B, L, H, P, N, chunk), every in ((SSD_BWD_CASES[0], False),
                                                 (SSD_BWD_CASES[1], True)):
@@ -2825,12 +2911,21 @@ def _ssd_bwd_timing(launches, per_step, errs):
         # W^T dy over them; with dcontrib, G and dB's contrib term
         nops = 2 * BC * (3 * tri * N + H * 2 * tri * P + (2 * H * C * P * N if every else 0))
         bound_ms, by = _bound(nbytes, nops, BF16_OPS_PER_S)
-        out[name] = dict(**_timed(lambda: SSD.ssd_intra_chunk_bwd(*args, *grads),
-                                  lambda: SSD.ssd_intra_chunk_bwd_plain(*args, *grads)),
-                         grads="dy, dcontrib, ddecay" if every else "dy",
+        plan = SSD.ssd_bwd_plan(dt_, BC, C, H, P, N, None, every)
+        call = lambda: SSD.ssd_intra_chunk_bwd(*args, *grads)  # noqa: E731
+        fma = lambda: SSD._ssd_intra_chunk_bwd_cuda(*args, *grads, design="fma")  # noqa: E731
+        out[name] = dict(**_timed(call, lambda: SSD.ssd_intra_chunk_bwd_plain(*args, *grads)),
+                         grads="dy, dcontrib, ddecay" if every else "dy", path=plan.path,
+                         head_groups=plan.groups, bands=plan.bands, smem=plan.smem,
                          bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=nops)
+        # three kernels a call (main, sum, dB / dC); the CUDA-core design eight
+        dev, fdev = _with_replaced(out[name], call, fma, 3, 8, "fma")
+        if dev is not None and fdev is not None:
+            check(dev < fdev, f"ssd_intra_chunk_bwd {name}: the tensor cores ({dev} ms) do not "
+                              f"beat the CUDA cores ({fdev} ms)")
         emit("timing", name="ssd_intra_chunk_bwd", case=name, dtype="bfloat16",
              x=list(args[0].shape), N=N, library_ms=None, **out[name])
+        del args, grads
     return _bwd_row("ssd_intra_chunk_bwd", "src/repro_torch/csrc/ssd_intra_chunk_bwd.cu",
                     "src/repro/kernels/ssd.py:65", launches, per_step, errs, out,
                     "mamba2_train_L128")
@@ -2838,7 +2933,8 @@ def _ssd_bwd_timing(launches, per_step, errs):
 
 def _rglru_bwd_timing(launches, per_step, errs):
     """At recurrentgemma-9b's train shape (the kernels-line row) and a
-    2048-token sequence at its width."""
+    2048-token sequence at its width; the first design timed on the same
+    inputs, warm and with the L2 flushed between calls."""
     out = {}
     for name, B, L, W in (RGLRU_BWD_CASES[0], ("L2048_1x2048x4096", 1, 2048, 4096)):
         dt_ = torch.bfloat16
@@ -2853,12 +2949,20 @@ def _rglru_bwd_timing(launches, per_step, errs):
                   + 3 * 2 * B * L * W + 4 * W + 4 * B * W)
         nops = 40 * B * L * W        # the gates again, their chain rule and the scan
         bound_ms, by = _bound(nbytes, nops, F32_OPS_PER_S)
-        out[name] = dict(**_timed(lambda: RG.rglru_scan_bwd(*args, h, dh, None),
-                                  lambda: RG.rglru_scan_bwd_plain(*args, h, dh, None),
+        call = lambda: RG.rglru_scan_bwd(*args, h, dh, None)  # noqa: E731
+        old = lambda: RG._rglru_scan_bwd_cuda(*args, h, dh, None, design="scalar")  # noqa: E731
+        out[name] = dict(**_timed(call, lambda: RG.rglru_scan_bwd_plain(*args, h, dh, None),
                                   n_plain=2),
-                         bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=nops)
+                         path=RG.rglru_bwd_path(dt_, W), bound_ms=bound_ms, bound_by=by,
+                         bytes=nbytes, ops=nops)
+        # two kernels a call in both designs: the scan, dlam's batch sum
+        dev, odev = _with_replaced(out[name], call, old, 2, 2, "scalar")
+        if dev is not None and odev is not None:
+            check(dev < odev, f"rglru_scan_bwd {name}: the vectorised lanes ({dev} ms) do not "
+                              f"beat the first design ({odev} ms)")
         emit("timing", name="rglru_scan_bwd", case=name, dtype="bfloat16", x=[B, L, W],
              library_ms=None, **out[name])
+        del args, h, dh, dht
     return _bwd_row("rglru_scan_bwd", "src/repro_torch/csrc/rglru_scan_bwd.cu",
                     "src/repro/kernels/rglru.py:47", launches, per_step, errs, out,
                     "rg_train_8x128x4096")

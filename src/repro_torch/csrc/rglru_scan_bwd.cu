@@ -24,23 +24,38 @@
 // kernel sums over the batch in order.
 //
 // Bound on this card: bytes.  At recurrentgemma-9b's train shape (8, 128,
-// 4096) in bf16 it reads x, r, i, out and dh (67 MB) and writes dx, dr, di
-// (25 MB): 0.027 ms at 3.35 TB/s.  The forward's chunked two-pass design
-// carries over reversed (`rglru_bwd_kernel`): a block owns 8 channels over
-// the whole of L as 32 chunk lanes of Tc = ceil(L / 32) steps, so the
-// threads in flight are B * W * 32 / 8 (131 072 at the train shape), not
-// B * W.
+// 4096) in bf16 it reads x, r, i (25 MB) and out and dh (34 MB, float32)
+// and writes dx, dr, di (25 MB): 84 MB, 0.025 ms at 3.35 TB/s.  The
+// forward's chunked two-pass design carries over reversed: L is cut into
+// chunk lanes, so the threads in flight are B * W * lanes / (channels a
+// thread), not B * W.
 //   1. Each lane runs its chunk backwards from g = 0 past its end, keeping
 //      the chunk's end value and the product of the a that carry a later g
-//      into it (a_{t1} of the next chunk's first step included).
-//   2. One thread per channel composes the chunk maps from the last chunk
-//      to the first, giving each chunk the g that enters it.
+//      into it.
+//   2. The chunk maps are composed from the last chunk to the first, giving
+//      each chunk the g that enters it.
 //   3. Each lane replays its chunk from that g, writing dx, dr, di and
 //      summing its dlam terms; the lanes' sums add in lane order per
 //      channel (shared memory), the batch's in a second kernel, so there are
 //      no atomics and the result repeats bit for bit.
-// Simple and right first: one channel a thread, scalar loads (ROADMAP
-// queue B).
+// Two designs; the wrapper's plan (`rglru_bwd_path` in kernels/rglru.py)
+// picks one from dtype, width and alignment, and `design` there names either:
+// * bfloat16, W a multiple of 8, 16-byte aligned operands ("vec"):
+//   `rglru_bwd_vec_kernel<G, KEEP>`, the forward's vectorised lanes: a
+//   thread owns 8 channels (one 16-byte load of x, r, i; two of out and dh),
+//   G thread columns side by side, 256 / G chunk lanes.  L <= 128 takes G = 8
+//   (64 channels, 32 lanes of <= 4 steps), longer L G = 2 (16 channels, 128
+//   lanes).  Where a lane's chunk is at most 4 steps its r and dh stay in
+//   registers from pass 1 to pass 3 (KEEP = 4), so every input is read
+//   once; longer chunks read r and dh again in pass 3 (at (1, 2048, 4096):
+//   117 MB for a 100 MB bound).  A chunk's first decay a_t0 goes to shared
+//   memory, so the lane before reads it there instead of reading r past its
+//   end, and h_{t-1} is out[t - 1], read once.  The gates take the
+//   forward's math: the sigmoid's division by __fdividef and the square
+//   root as v rsqrt(v) (within ~2 ulp); the exps stay expf.
+// * float32 (the card-vs-CPU cross-check), other widths, or `design`
+//   "scalar": `rglru_bwd_kernel`, the first design: 8 channels a block, one
+//   a thread, scalar loads, 32 chunk lanes, IEEE math.
 //
 // Nothing is allocated here and nothing synchronises.
 
@@ -67,6 +82,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// -8 softplus(lam), softplus as logaddexp(lam, 0)
+__device__ __forceinline__ float neg_c_softplus(float lv) {
+  return -8.f * (fmaxf(lv, 0.f) + log1pf(expf(-fabsf(lv))));
+}
 
 __device__ __forceinline__ float load_h0(const void* h0, int h0_bf16, long long i) {
   return h0_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(h0)[i])
@@ -98,7 +118,7 @@ rglru_bwd_kernel(const T* __restrict__ x, const T* __restrict__ r, const T* __re
   const int t1 = min(L, t0 + Tc);
   const long long base = b * L * W + w;
   const float lv = on ? lam[w] : 0.f;
-  const float ncs = -8.f * (fmaxf(lv, 0.f) + log1pf(expf(-fabsf(lv))));
+  const float ncs = neg_c_softplus(lv);
 
   // dh_t, with dh_T added at the last step
   auto grad_out = [&](int t) {
@@ -181,8 +201,283 @@ rglru_bwd_lam_kernel(const float* __restrict__ dlam_part, const float* __restric
   dlam[w] = s * (-8.f * sigmoid(lam[w]));
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on 16-byte chunk lanes
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int kVec = 8;  // bf16 channels a thread: one 16-byte load
+
+// __fdividef: within 2 ulp (0 for a denominator past 2^126, where the
+// sigmoid is 0 anyway), as the forward's gates
+__device__ __forceinline__ float fsigmoid(float x) { return __fdividef(1.f, 1.f + expf(-x)); }
+
+__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[kVec]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < kVec / 2; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void ld8(const bf16* p, float (&v)[kVec]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), v);
+}
+__device__ __forceinline__ void ld8(const float* p, float (&v)[kVec]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void st8(bf16* p, const float (&v)[kVec]) {
+  uint4 u;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int k = 0; k < kVec / 2; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    w[k] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void st8(float* p, const float (&v)[kVec]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The carry over the chunks, from the last to the first: chunk l maps the g
+// entering it past its end to g at its first step, G -> P_l G + E_l with P_l
+// = prod'_l a_{t1(l)} (a_{t1} the next chunk's first decay, 0 past the last
+// chunk).  Each chunk's entering g (written over s_val) is the composition
+// of the later chunks' maps applied to g_L = 0.  One warp scans a channel as
+// the forward does, over the chunks in reverse order.
+template <int NL, int CW>
+__device__ __forceinline__ void carry_scan_rev(float (*s_prod)[CW], float (*s_val)[CW],
+                                               const float (*s_af)[CW]) {
+  static_assert(NL % 32 == 0, "a warp scans a channel's chunks");
+  constexpr int K = NL / 32;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int c = warp; c < CW; c += kThreads / 32) {
+    float Am = 1.f, Bm = 0.f;  // this lane's maps, composed (position m from the right)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int l = NL - 1 - (lane * K + k);
+      const float pl = s_prod[l][c] * (l + 1 < NL ? s_af[l + 1][c] : 0.f);
+      Bm = fmaf(pl, Bm, s_val[l][c]);
+      Am *= pl;
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {  // compose with the later chunks' lanes
+      const float Ao = __shfl_up_sync(0xffffffffu, Am, o);
+      const float Bo = __shfl_up_sync(0xffffffffu, Bm, o);
+      if (lane >= o) {
+        Bm = fmaf(Am, Bo, Bm);
+        Am *= Ao;
+      }
+    }
+    float Be = __shfl_up_sync(0xffffffffu, Bm, 1);
+    if (lane == 0) Be = 0.f;
+    float carry = Be;  // applied to g_L = 0
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int l = NL - 1 - (lane * K + k);
+      const float pl = s_prod[l][c] * (l + 1 < NL ? s_af[l + 1][c] : 0.f);
+      const float el = s_val[l][c];
+      s_val[l][c] = carry;
+      carry = fmaf(pl, carry, el);
+    }
+  }
+}
+
+// G thread columns of 8 channels each, kThreads / G chunk lanes of Tc steps;
+// KEEP > 0: a lane's chunk is at most KEEP steps and its r and dh stay in
+// registers from pass 1 to pass 3; KEEP = 0: pass 3 reads them again.  Two
+// blocks an SM (<= 128 registers a thread).
+template <int G, int KEEP>
+__global__ void __launch_bounds__(kThreads, 2)
+rglru_bwd_vec_kernel(const bf16* __restrict__ x, const bf16* __restrict__ r,
+                     const bf16* __restrict__ gi, const float* __restrict__ lam,
+                     const void* __restrict__ h0, int h0_bf16, const float* __restrict__ out,
+                     const float* __restrict__ dh, const float* __restrict__ dhT,
+                     bf16* __restrict__ dx, bf16* __restrict__ dr, bf16* __restrict__ di,
+                     float* __restrict__ dh0, float* __restrict__ dlam_part, int L, int W,
+                     int Tc) {
+  constexpr int NL = kThreads / G;  // chunk lanes
+  constexpr int CW = G * kVec;      // channels per block
+  constexpr int NK = KEEP > 0 ? KEEP : 1;
+  __shared__ float s_prod[NL][CW];  // the chunk's product of a past its first step
+  __shared__ float s_val[NL][CW];   // its g at t0 from g = 0, then the g entering it
+  __shared__ float s_af[NL][CW];    // a at its first step (0 for an empty chunk)
+  __shared__ float s_lam[NL][CW];   // its dlam terms
+
+  const int col = threadIdx.x % G;
+  const int lane = threadIdx.x / G;
+  const int c0 = col * kVec;
+  const int w0 = blockIdx.x * CW + c0;
+  const long long b = blockIdx.y;
+  const int t0 = min(L, lane * Tc);
+  const int t1 = min(L, t0 + Tc);
+  const bool on = w0 < W;  // W is a multiple of 8
+  const long long base = b * L * W + w0;
+
+  float ncs[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) ncs[k] = on ? neg_c_softplus(lam[w0 + k]) : 0.f;
+  // dh_t, with dh_T added at the last step
+  auto grad = [&](int t, float (&v)[kVec]) {
+    ld8(dh + base + static_cast<long long>(t) * W, v);
+    if (dhT != nullptr && t == L - 1) {
+      float e[kVec];
+      ld8(dhT + b * W + w0, e);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) v[k] += e[k];
+    }
+  };
+
+  // h_{t-1}: out[t - 1], or h0 at t = 0
+  auto h_prev = [&](int t, long long off, float (&v)[kVec]) {
+    if (t > 0) {
+      ld8(out + off - W, v);
+    } else if (h0_bf16) {
+      ld8(static_cast<const bf16*>(h0) + b * W + w0, v);
+    } else {
+      ld8(static_cast<const float*>(h0) + b * W + w0, v);
+    }
+  };
+
+  // 1. the chunk from g = 0 past its end
+  uint4 rk[NK];
+  float dk[NK][kVec];
+  float g[kVec], prod[kVec], an[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    g[k] = 0.f;
+    prod[k] = 1.f;
+    an[k] = 0.f;
+  }
+  auto step1 = [&](int t, const uint4& ru, const float (&du)[kVec]) {
+    float rv[kVec];
+    unpack8(ru, rv);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const float a = expf(ncs[k] * fsigmoid(rv[k]));
+      g[k] = fmaf(an[k], g[k], du[k]);
+      if (t > t0) prod[k] *= a;
+      an[k] = a;
+    }
+  };
+  if (on && t0 < t1) {
+    if constexpr (KEEP > 0) {
+#pragma unroll
+      for (int j = 0; j < KEEP; ++j) {
+        if (t0 + j < t1) {
+          rk[j] = *reinterpret_cast<const uint4*>(r + base + static_cast<long long>(t0 + j) * W);
+          grad(t0 + j, dk[j]);
+        }
+      }
+#pragma unroll
+      for (int j = KEEP - 1; j >= 0; --j)
+        if (t0 + j < t1) step1(t0 + j, rk[j], dk[j]);
+    } else {
+      for (int t = t1 - 1; t >= t0; t -= 2) {
+        uint4 ru[2];
+        float du[2][kVec];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (t - u >= t0) {
+            ru[u] = *reinterpret_cast<const uint4*>(r + base + static_cast<long long>(t - u) * W);
+            grad(t - u, du[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          if (t - u >= t0) step1(t - u, ru[u], du[u]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    s_prod[lane][c0 + k] = prod[k];
+    s_val[lane][c0 + k] = g[k];
+    s_af[lane][c0 + k] = (on && t0 < t1) ? an[k] : 0.f;
+  }
+  __syncthreads();
+  // 2. the g entering each chunk
+  carry_scan_rev<NL, CW>(s_prod, s_val, s_af);
+  __syncthreads();
+
+  // 3. replay from the true g, forming the gradients
+  float lam_acc[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) lam_acc[k] = 0.f;
+  if (on && t0 < t1) {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      g[k] = s_val[lane][c0 + k];
+      an[k] = lane + 1 < NL ? s_af[lane + 1][c0 + k] : 0.f;
+    }
+    auto step3 = [&](int t, const uint4& ru, const float (&du)[kVec]) {
+      const long long off = base + static_cast<long long>(t) * W;
+      float rv[kVec], xv[kVec], iv[kVec], hp[kVec];
+      unpack8(ru, rv);
+      ld8(x + off, xv);
+      ld8(gi + off, iv);
+      h_prev(t, off, hp);
+      float ox[kVec], orr[kVec], oi[kVec];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        g[k] = fmaf(an[k], g[k], du[k]);
+        const float sr = fsigmoid(rv[k]);
+        const float si = fsigmoid(iv[k]);
+        const float log_a = ncs[k] * sr;
+        const float a = expf(log_a);
+        const float e2 = expf(2.f * log_a);
+        const float z = 1.f - e2;
+        const float v = fmaxf(z, 1e-12f);
+        const float rb = rsqrtf(v);
+        const float beta = v * rb;  // sqrt(v) within ~2 ulp
+        float dlog_a = g[k] * hp[k] * a;
+        if (z > 1e-12f) dlog_a -= g[k] * si * xv[k] * e2 * rb;
+        ox[k] = g[k] * beta * si;
+        oi[k] = g[k] * beta * xv[k] * si * (1.f - si);
+        orr[k] = dlog_a * ncs[k] * sr * (1.f - sr);
+        lam_acc[k] = fmaf(dlog_a, sr, lam_acc[k]);
+        hp[k] = a * g[k];  // dh0 at t = 0
+        an[k] = a;
+      }
+      st8(dx + off, ox);
+      st8(dr + off, orr);
+      st8(di + off, oi);
+      if (t == 0) st8(dh0 + b * W + w0, hp);
+    };
+    if constexpr (KEEP > 0) {
+#pragma unroll
+      for (int j = KEEP - 1; j >= 0; --j)
+        if (t0 + j < t1) step3(t0 + j, rk[j], dk[j]);
+    } else {
+      for (int t = t1 - 1; t >= t0; --t) {
+        const uint4 ru = *reinterpret_cast<const uint4*>(r + base + static_cast<long long>(t) * W);
+        float du[kVec];
+        grad(t, du);
+        step3(t, ru, du);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) s_lam[lane][c0 + k] = lam_acc[k];
+  __syncthreads();
+  // the lanes' dlam terms in lane order, per channel
+  for (int c = threadIdx.x; c < CW; c += kThreads) {
+    const int w = blockIdx.x * CW + c;
+    if (w >= W) continue;
+    float s = 0.f;
+    for (int l = 0; l < NL; ++l) s += s_lam[l][c];
+    dlam_part[b * W + w] = s;
+  }
+}
+
 template <typename T>
-int launch(const void* x, const void* r, const void* i, const float* lam, const void* h0,
+int launch_scalar(const void* x, const void* r, const void* i, const float* lam, const void* h0,
            int h0_bf16, const float* out, const float* dh, const float* dhT, void* dx,
            void* dr, void* di, float* dh0, float* dlam_part, float* dlam, int B, int L, int W,
            cudaStream_t s) {
@@ -200,18 +495,57 @@ int launch(const void* x, const void* r, const void* i, const float* lam, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int G, int KEEP>
+int launch_vec_kernel(const void* x, const void* r, const void* i, const float* lam,
+                      const void* h0, int h0_bf16, const float* out, const float* dh,
+                      const float* dhT, void* dx, void* dr, void* di, float* dh0,
+                      float* dlam_part, int B, int L, int W, cudaStream_t s) {
+  constexpr int NL = kThreads / G;
+  constexpr int CW = G * kVec;
+  const int Tc = (L + NL - 1) / NL;
+  const dim3 grid((W + CW - 1) / CW, B);
+  rglru_bwd_vec_kernel<G, KEEP><<<grid, kThreads, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(r), static_cast<const bf16*>(i),
+      lam, h0, h0_bf16, out, dh, dhT, static_cast<bf16*>(dx), static_cast<bf16*>(dr),
+      static_cast<bf16*>(di), dh0, dlam_part, L, W, Tc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_vec(const void* x, const void* r, const void* i, const float* lam, const void* h0,
+               int h0_bf16, const float* out, const float* dh, const float* dhT, void* dx,
+               void* dr, void* di, float* dh0, float* dlam_part, float* dlam, int B, int L,
+               int W, cudaStream_t s) {
+  int err;
+  if (L <= 32 * 4) {
+    err = launch_vec_kernel<8, 4>(x, r, i, lam, h0, h0_bf16, out, dh, dhT, dx, dr, di, dh0,
+                                  dlam_part, B, L, W, s);
+  } else if (L <= 128 * 4) {
+    err = launch_vec_kernel<2, 4>(x, r, i, lam, h0, h0_bf16, out, dh, dhT, dx, dr, di, dh0,
+                                  dlam_part, B, L, W, s);
+  } else {
+    err = launch_vec_kernel<2, 0>(x, r, i, lam, h0, h0_bf16, out, dh, dhT, dx, dr, di, dh0,
+                                  dlam_part, B, L, W, s);
+  }
+  if (err != 0) return err;
+  const dim3 g2((W + kThreads - 1) / kThreads);
+  rglru_bwd_lam_kernel<<<g2, kThreads, 0, s>>>(dlam_part, lam, dlam, B, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, r, i: (B, L, W) contiguous, dtype 0 = float32, 1 = bfloat16; lam (W,)
 // float32; h0 (B, W) float32 (h0_dtype 0) or bfloat16 (1); out, dh (B, L, W)
 // float32; dhT (B, W) float32 or null; dx, dr, di (B, L, W) in x's dtype;
 // dh0 (B, W) float32; dlam_part (B, W) float32 scratch; dlam (W,) float32.
-// Returns cudaGetLastError() after the launches.
+// path 0 = the first design ("scalar"), 1 = the vectorised lanes ("vec":
+// bfloat16, W a multiple of 8, every operand 16-byte aligned).  Returns
+// cudaGetLastError() after the launches.
 extern "C" int rglru_scan_bwd(const void* x, const void* r, const void* i, const void* lam,
                               const void* h0, int h0_dtype, const void* out, const void* dh,
                               const void* dhT, void* dx, void* dr, void* di, void* dh0,
                               void* dlam_part, void* dlam, int B, int L, int W, int dtype,
-                              void* stream) {
+                              int path, void* stream) {
   if (B <= 0 || B > 65535 || L <= 0 || W <= 0 || (h0_dtype != 0 && h0_dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -223,11 +557,23 @@ extern "C" int rglru_scan_bwd(const void* x, const void* r, const void* i, const
   float* h0f = static_cast<float*>(dh0);
   float* pf = static_cast<float*>(dlam_part);
   float* lamf = static_cast<float*>(dlam);
+  if (path == 1) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(r) |
+                           reinterpret_cast<uintptr_t>(i) | reinterpret_cast<uintptr_t>(h0) |
+                           reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(dh) |
+                           reinterpret_cast<uintptr_t>(dhT) | reinterpret_cast<uintptr_t>(dx) |
+                           reinterpret_cast<uintptr_t>(dr) | reinterpret_cast<uintptr_t>(di) |
+                           reinterpret_cast<uintptr_t>(dh0);
+    if (dtype != 1 || W % kVec != 0 || addr % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_vec(x, r, i, lf, h0, h0_dtype, of, df, tf, dx, dr, di, h0f, pf, lamf, B, L, W,
+                      s);
+  }
+  if (path != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch<float>(x, r, i, lf, h0, h0_dtype, of, df, tf, dx, dr, di, h0f, pf, lamf, B,
-                         L, W, s);
+    return launch_scalar<float>(x, r, i, lf, h0, h0_dtype, of, df, tf, dx, dr, di, h0f, pf,
+                                lamf, B, L, W, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, r, i, lf, h0, h0_dtype, of, df, tf, dx, dr, di, h0f, pf,
-                                 lamf, B, L, W, s);
+    return launch_scalar<__nv_bfloat16>(x, r, i, lf, h0, h0_dtype, of, df, tf, dx, dr, di, h0f,
+                                        pf, lamf, B, L, W, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

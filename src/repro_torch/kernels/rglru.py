@@ -15,7 +15,9 @@ and runs on PyTorch's current stream.  At L = 1, h_T is a view of h.
 The backward (``csrc/rglru_scan_bwd.cu``, :func:`rglru_scan_bwd`) runs the
 reverse scan ``g_t = dh_t + a_{t+1} g_{t+1}`` from the saved output and
 returns ``(dx, dr, di, dlam, dh0)``; :class:`RglruScanFn` wires forward and
-backward for autograd.
+backward for autograd.  Its plan (:func:`rglru_bwd_path`) sends bf16 of a
+width that is a multiple of 8 to the vectorised chunk lanes and the rest to
+the first, one-channel-a-thread design.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from .. import _cuda
 
 __all__ = ["rglru_scan", "rglru_scan_plain", "rglru_scan_bwd", "rglru_scan_bwd_plain",
-           "RglruScanFn"]
+           "RglruScanFn", "rglru_bwd_path"]
 
 _C = 8.0
 _F32 = torch.float32
@@ -41,8 +43,10 @@ _SIG = {
 }
 _BWD_SIG = {
     "rglru_scan_bwd": (ctypes.c_int, [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+                       + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
 }
+#: the backward's designs by the C entry point's ``path``
+_BWD_DESIGNS = {"scalar": 0, "vec": 1}
 
 
 def _softplus(x):
@@ -168,15 +172,18 @@ def rglru_scan(x, r, i, lam, h0):
 rglru_scan.launches = 0
 
 
-_BWD_FN = []
+def rglru_bwd_path(dtype, W: int, aligned: bool = True) -> str:
+    """The backward kernel's design for one call: "vec" (bf16, W a multiple
+    of 8, 16-byte aligned operands: 8 channels a thread on 16-byte loads)
+    or "scalar" (the first design: float32, other widths)."""
+    return "vec" if dtype == torch.bfloat16 and W % 8 == 0 and aligned else "scalar"
 
 
-def _rglru_scan_bwd_cuda(x, r, i, lam, h0, out, dh, dh_t=None):
-    """Launch ``csrc/rglru_scan_bwd.cu`` on the current stream: the reverse
-    chunked scan and the batch sum of dlam."""
+def _bwd_checked(x, r, i, lam, h0, out, dh, dh_t=None, design=None):
+    """The backward kernel's operand rules, checked before anything is
+    built or launched; returns ``(B, L, W)``."""
     dtype = x.dtype
-    code = _DTYPES.get(dtype)
-    if code is None or r.dtype is not dtype or i.dtype is not dtype:
+    if _DTYPES.get(dtype) is None or r.dtype is not dtype or i.dtype is not dtype:
         raise TypeError(f"rglru_scan_bwd takes float32 or bfloat16 x/r/i of one dtype, "
                         f"got {dtype} / {r.dtype} / {i.dtype}")
     shape = x.shape
@@ -191,6 +198,18 @@ def _rglru_scan_bwd_cuda(x, r, i, lam, h0, out, dh, dh_t=None):
                          f"dh {tuple(dh.shape)}")
     if b * l * w == 0:
         raise ValueError(f"empty rglru_scan_bwd: x {tuple(shape)}")
+    if design is not None and design not in _BWD_DESIGNS:
+        raise ValueError(f"unknown rglru_scan_bwd design {design!r}")
+    if design == "vec" and rglru_bwd_path(dtype, w) != "vec":
+        raise ValueError(f"the vec design takes bf16 with W a multiple of 8, got {dtype} W={w}")
+    return b, l, w
+
+
+def _rglru_scan_bwd_cuda(x, r, i, lam, h0, out, dh, dh_t=None, design=None):
+    """Launch ``csrc/rglru_scan_bwd.cu`` on the current stream, on the
+    design :func:`rglru_bwd_path` picks, or ``design``: the reverse chunked
+    scan and the batch sum of dlam."""
+    b, l, w = _bwd_checked(x, r, i, lam, h0, out, dh, dh_t, design)
     dev = x.get_device()
     ts = [r, i, lam, h0, out, dh] + ([dh_t] if dh_t is not None else [])
     if any(t.get_device() != dev for t in ts):
@@ -201,20 +220,23 @@ def _rglru_scan_bwd_cuda(x, r, i, lam, h0, out, dh, dh_t=None):
     if h0_code is None:
         h0, h0_code = h0.float(), 0
     h0 = h0.contiguous()
+    # float32 and contiguous already on the train path: no copy
     out, dh = out.float().contiguous(), dh.float().contiguous()
     if dh_t is not None:
         dh_t = dh_t.float().contiguous()
-    dx, dr, di = torch.empty_like(x), torch.empty_like(r), torch.empty_like(i)
+    dx, dr, di = (torch.empty((b, l, w), dtype=x.dtype, device=x.device) for _ in range(3))
     f32 = dict(dtype=_F32, device=x.device)
     dh0, dlam_part = torch.empty((2, b, w), **f32)
     dlam = torch.empty((w,), **f32)
-    if not _BWD_FN:
-        _BWD_FN.append(_cuda.load("rglru_scan_bwd", _BWD_SIG).rglru_scan_bwd)
-    err = _BWD_FN[0](
+    ops_ = (x, r, i, h0, out, dh, dx, dr, di, dh0) + ((dh_t,) if dh_t is not None else ())
+    path = design or rglru_bwd_path(x.dtype, w, all(t.data_ptr() % 16 == 0 for t in ops_))
+    fn = _cuda.load("rglru_scan_bwd", _BWD_SIG).rglru_scan_bwd
+    err = fn(
         x.data_ptr(), r.data_ptr(), i.data_ptr(), lam.data_ptr(), h0.data_ptr(), h0_code,
         out.data_ptr(), dh.data_ptr(), None if dh_t is None else dh_t.data_ptr(),
         dx.data_ptr(), dr.data_ptr(), di.data_ptr(), dh0.data_ptr(), dlam_part.data_ptr(),
-        dlam.data_ptr(), b, l, w, code, torch._C._cuda_getCurrentRawStream(dev),
+        dlam.data_ptr(), b, l, w, _DTYPES[x.dtype], _BWD_DESIGNS[path],
+        torch._C._cuda_getCurrentRawStream(dev),
     )
     if err != 0:
         raise RuntimeError(f"rglru_scan_bwd launch failed: CUDA error {err}")

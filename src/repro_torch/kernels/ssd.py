@@ -27,7 +27,9 @@ stream.
 The backward (``csrc/ssd_intra_chunk_bwd.cu``, :func:`ssd_intra_chunk_bwd`)
 takes the gradients of all three outputs (any may be None) and returns
 those of x, dt, A, B and C; :class:`SsdIntraChunkFn` wires forward and
-backward for autograd.
+backward for autograd.  Its plan (:func:`ssd_bwd_plan`) sends bf16 with
+P >= 8 to the tensor cores (three launches; x, B and C read in place as
+token rows, dy in place) and float32 to the CUDA cores.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ import torch
 from .. import _cuda
 
 __all__ = ["ssd_intra_chunk", "ssd_intra_chunk_plain", "chunk_cumsum", "ssd_plan", "SsdPlan",
-           "ssd_intra_chunk_bwd", "ssd_intra_chunk_bwd_plain", "SsdIntraChunkFn"]
+           "ssd_intra_chunk_bwd", "ssd_intra_chunk_bwd_plain", "SsdIntraChunkFn",
+           "ssd_bwd_path", "ssd_bwd_plan", "SsdBwdPlan", "ssd_bwd_smem_bytes"]
 
 _F32 = torch.float32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,9 +63,18 @@ _SIG = {
 }
 _BWD_SIG = {
     "ssd_intra_chunk_bwd": (ctypes.c_int, [ctypes.c_void_p] * 14 + [ctypes.c_longlong]
-                            + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
-    "ssd_intra_chunk_bwd_scratch": (ctypes.c_longlong, [ctypes.c_longlong] + [ctypes.c_int] * 4),
+                            + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]),
+    "ssd_intra_chunk_bwd_scratch": (ctypes.c_longlong, [ctypes.c_longlong] + [ctypes.c_int] * 7),
+    "ssd_intra_chunk_bwd_smem": (ctypes.c_longlong, [ctypes.c_int] * 4),
 }
+#: the backward's designs by the C entry point's ``path``
+_BWD_DESIGNS = {"fma": 0, "mma": 1}
+#: main blocks of the tensor-core backward a wave holds at one block an SM
+#: (an H100's 132 SMs; doubled where two blocks fit an SM): the head groups
+#: follow from it and the shape alone
+SSD_BWD_TARGET_BLOCKS = 132
+#: s-tiles of 16 rows in one band of the main kernel: one per warp
+_BAND_TILES = 8
 
 
 def chunk_cumsum(dt, A):
@@ -187,6 +199,88 @@ def ssd_plan(dtype, C: int, P: int, N: int) -> SsdPlan:
     return SsdPlan("fma", 0)
 
 
+def _max_band_pairs(nt: int) -> int:
+    """The most (s, t >= s) tile pairs of one band of the backward's main
+    kernel: bands of 8 s-tiles dealt 0, nt - 1, 1, nt - 2, ...
+    (``max_band_pairs`` in the source)."""
+    order = [nt - 1 - (k >> 1) if k & 1 else k >> 1 for k in range(nt)]
+    return max(sum(nt - j for j in order[b:b + _BAND_TILES])
+               for b in range(0, nt, _BAND_TILES))
+
+
+def ssd_bwd_smem_bytes(C: int, P: int, N: int, contrib: bool = False) -> int:
+    """Shared memory of one main block of the tensor-core backward
+    (``mma_smem_bytes`` in the source, whose launcher refuses any other
+    count): the largest band's C.B^T tiles (1 KB each), then the larger of
+    the per-head region (dy's rows in bf16 at pitch ``max(P, 16) + 8``, or
+    the warps' hand-over of dx where larger, the group's dCB^T tiles, the
+    per-segment sums over s, acum, dt and coef; with ``contrib``, the head's
+    dcontrib in bf16) and the prologue's staging of C's rows
+    and, where both fit, B's (pitch ``_r16(N) + 8``), over ``_r16(C)``
+    rows."""
+    cp = _r16(C)
+    cbt = 4 * 256 * _max_band_pairs(cp // 16)
+    dy = max(2 * cp * (max(P, 16) + 8), 4 * 4 * (P // 8 * 128 + 64))
+    head = dy + cbt + 4 * (16 + 3) * cp
+    both = 2 * 2 * cp * (_r16(N) + 8)
+    stage = both if cbt + max(head, both) <= SMEM_MAX else both // 2
+    if contrib:
+        head += 2 * P * (_r16(N) + 8)
+    return cbt + max(head, stage)
+
+
+def ssd_bwd_path(dtype, C: int, P: int, N: int, contrib: bool = False) -> str:
+    """The backward's design for one call, from dtype, shape and whether
+    contrib's gradient is given alone: "mma" (bf16 on the tensor cores: P a
+    power of two in [8, 128], C and N <= 256, the main block within
+    ``SMEM_MAX``, which every such shape is; not P = 128 with ``contrib``,
+    whose G product and dx's 64 accumulators a thread would not fit the
+    registers, and which no arch of the zoo has) or "fma" (the CUDA cores:
+    float32, P < 8)."""
+    ok = (dtype == torch.bfloat16 and 8 <= P <= _MAX_P and not P & (P - 1)
+          and not (contrib and P == _MAX_P) and 0 < C <= _MAX_C and 0 < N <= _MAX_N
+          and ssd_bwd_smem_bytes(C, P, N, contrib) <= SMEM_MAX)
+    return "mma" if ok else "fma"
+
+
+class SsdBwdPlan(NamedTuple):
+    """The backward's design for one call: ``path`` "mma" (three launches,
+    the main kernel on ``groups`` head groups x ``bands`` bands x chunks,
+    ``smem`` bytes a block) or "fma" (the CUDA cores' eight launches)."""
+    path: str
+    groups: int
+    bands: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def ssd_bwd_plan(dtype, BC: int, C: int, H: int, P: int, N: int, design=None,
+                 contrib: bool = False) -> SsdBwdPlan:
+    """The plan :func:`ssd_bwd_path` picks, or ``design`` ("mma" / "fma",
+    refused where it cannot run); ``contrib``: whether contrib's gradient is
+    given (its head's rows take shared memory, and its product keeps the
+    main kernel at one block an SM).  The head groups are the most
+    that keep the main kernel within one wave of ``SSD_BWD_TARGET_BLOCKS``
+    blocks an SM-slot, so each block's C.B^T is formed once for as many heads
+    as the wave allows; depends on the shape alone."""
+    path = design or ssd_bwd_path(dtype, C, P, N, contrib)
+    if path not in _BWD_DESIGNS:
+        raise ValueError(f"unknown ssd_intra_chunk_bwd design {path!r}")
+    if path == "mma" and ssd_bwd_path(dtype, C, P, N, contrib) != "mma":
+        raise ValueError(f"the mma design takes bf16 with P a power of two in [8, {_MAX_P}] "
+                         f"(below {_MAX_P} with contrib's gradient) and C <= {_MAX_C}, got "
+                         f"{dtype} C={C} P={P}")
+    if path == "fma":
+        return SsdBwdPlan("fma", 1, 1, 0)
+    nt = _r16(C) // 16
+    bands = -(-nt // _BAND_TILES)
+    smem = ssd_bwd_smem_bytes(C, P, N, contrib)
+    # two blocks an SM where two fit and dcontrib's product is not in the kernel
+    per_sm = 2 if P <= 64 and not contrib and 2 * (smem + 1024) <= 228 * 1024 else 1
+    groups = max(1, min(H, SSD_BWD_TARGET_BLOCKS * per_sm // (BC * bands)))
+    return SsdBwdPlan("mma", groups, bands, smem)
+
+
 def _row_stride(t, inner):
     """The row stride of ``t`` (B, nb, C, ...) seen as B * nb * C token rows
     of ``inner`` contiguous elements, or None if it is not laid out so."""
@@ -297,13 +391,9 @@ def ssd_intra_chunk(x, dt, A, Bm, Cm):
 ssd_intra_chunk.launches = 0
 
 
-_BWD_LIB = []
-
-
-def _ssd_intra_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy=None, dcontrib=None, ddecay=None):
-    """Launch ``csrc/ssd_intra_chunk_bwd.cu`` on the current stream (its
-    seven kernels: acum and CB, dCB per head group and its sum, dx, dB and
-    dC, the per-chunk finish, dA)."""
+def _bwd_checked(x, dt, A, Bm, Cm, dy=None, dcontrib=None, ddecay=None, design=None):
+    """The backward kernel's operand rules, checked before anything is
+    built or launched; returns ``(B, nb, C, H, P, N, plan)``."""
     dtype = x.dtype
     code = _DTYPES.get(dtype)
     if code is None or Bm.dtype is not dtype or Cm.dtype is not dtype:
@@ -327,16 +417,49 @@ def _ssd_intra_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy=None, dcontrib=None, ddecay=N
             raise ValueError("ssd_intra_chunk_bwd: inputs lie on different devices")
     if b * nb * c * h * p * n == 0:
         raise ValueError(f"empty ssd_intra_chunk_bwd: x {tuple(x.shape)}, N={n}")
-    x, dt, A, Bm, Cm = (t.contiguous() for t in (x, dt, A, Bm, Cm))
-    dy, dcontrib, ddecay = (None if t is None else t.float().contiguous()
-                            for t in (dy, dcontrib, ddecay))
-    if not _BWD_LIB:
-        _BWD_LIB.append(_cuda.load("ssd_intra_chunk_bwd", _BWD_SIG))
-    lib = _BWD_LIB[0]
+    return b, nb, c, h, p, n, ssd_bwd_plan(dtype, b * nb, c, h, p, n, design,
+                                           dcontrib is not None)
+
+
+def _ssd_intra_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy=None, dcontrib=None, ddecay=None,
+                              design=None):
+    """Launch ``csrc/ssd_intra_chunk_bwd.cu`` on the current stream, on the
+    design :func:`ssd_bwd_plan` picks, or ``design``: "mma" its three
+    tensor-core kernels (main, dB / dC and the finish, dA), "fma" the
+    CUDA cores' eight."""
+    b, nb, c, h, p, n, plan = _bwd_checked(x, dt, A, Bm, Cm, dy, dcontrib, ddecay, design)
+    mma = plan.path == "mma"
+    dt, A = dt.contiguous(), A.contiguous()
+    if mma:
+        # token rows read in place: x's pairs 4-byte aligned, B and C any stride
+        x_rs = _row_stride(x, h * p)
+        if x_rs is None or x_rs % 2 or x.data_ptr() % 4:
+            x, x_rs = _fresh(x), h * p
+        b_rs = _row_stride(Bm, n)
+        if b_rs is None:
+            Bm, b_rs = _fresh(Bm), n
+        c_rs = _row_stride(Cm, n)
+        if c_rs is None:
+            Cm, c_rs = _fresh(Cm), n
+    else:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+        x_rs, b_rs, c_rs = h * p, n, n
+    # dy arrives as float32 from y_intra's grad: read in place, 16-byte aligned
+    if dy is not None:
+        dy = dy.float().contiguous()
+        if dy.data_ptr() % 16:
+            dy = _fresh(dy)
+    dcontrib, ddecay = (None if t is None else t.float().contiguous()
+                        for t in (dcontrib, ddecay))
+    if dcontrib is not None and dcontrib.data_ptr() % 16:
+        dcontrib = _fresh(dcontrib)
+    lib = _cuda.load("ssd_intra_chunk_bwd", _BWD_SIG)
     bc = b * nb
     f32 = dict(dtype=_F32, device=x.device)
-    scratch = torch.empty((lib.ssd_intra_chunk_bwd_scratch(bc, c, h, p, n),), **f32)
-    dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
+    scratch = torch.empty((lib.ssd_intra_chunk_bwd_scratch(
+        bc, c, h, p, n, _BWD_DESIGNS[plan.path], plan.groups, dcontrib is not None),), **f32)
+    dx = torch.empty((b, nb, c, h, p), dtype=x.dtype, device=x.device)
+    dB, dC = torch.empty((2, b, nb, c, n), dtype=Bm.dtype, device=x.device)
     ddt = torch.empty((b, nb, c, h), **f32)
     dA = torch.empty((h,), **f32)
 
@@ -346,7 +469,8 @@ def _ssd_intra_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy=None, dcontrib=None, ddecay=N
     err = lib.ssd_intra_chunk_bwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), ptr(dy),
         ptr(dcontrib), ptr(ddecay), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
-        dB.data_ptr(), dC.data_ptr(), scratch.data_ptr(), bc, c, h, p, n, code,
+        dB.data_ptr(), dC.data_ptr(), scratch.data_ptr(), bc, c, h, p, n, _DTYPES[x.dtype],
+        _BWD_DESIGNS[plan.path], plan.groups, plan.smem, x_rs, b_rs, c_rs,
         torch._C._cuda_getCurrentRawStream(x.get_device()),
     )
     if err != 0:

@@ -766,6 +766,74 @@ def test_rglru_scan_bwd_kernel_matches_plain(cuda, dtype, B, L, W):
         assert _rel_max(a, b) <= TOL_BWD_MAX[dtype]
 
 
+def _ssd_bwd_case(dev, B, nb, C, H, P, N, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, nb, C, H, P), generator=g, device=dev).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(torch.randn((B, nb, C, H), generator=g, device=dev))
+    A = -torch.exp(0.3 * torch.randn((H,), generator=g, device=dev))
+    Bm, Cm = (torch.randn((B, nb, C, N), generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    grads = [torch.randn(s, generator=g, device=dev)
+             for s in ((B, nb, C, H, P), (B, nb, H, P, N), (B, nb, H))]
+    return (x, dt, A, Bm, Cm), grads
+
+
+@pytest.mark.parametrize("design", ["mma", "fma"])
+@pytest.mark.parametrize("mask", [1, 2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("B, nb, C, H, P, N", [(8, 1, 128, 80, 64, 128), (2, 4, 256, 5, 64, 128),
+                                               (2, 2, 40, 3, 8, 24), (1, 1, 13, 3, 16, 20)])
+def test_ssd_intra_chunk_bwd_designs_match_plain(cuda, B, nb, C, H, P, N, mask, design):
+    """bf16, the tensor-core design and the CUDA-core one it replaced (by
+    name), under every combination of the three gradients."""
+    args, grads = _ssd_bwd_case(cuda, B, nb, C, H, P, N, C + H + mask)
+    gs = [t if mask >> k & 1 else None for k, t in enumerate(grads)]
+    got = SSD._ssd_intra_chunk_bwd_cuda(*args, *gs, design=design)
+    for a, b in zip(got, SSD.ssd_intra_chunk_bwd_plain(*args, *gs)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel_max(a, b) <= TOL_BWD_MAX[torch.bfloat16]
+
+
+@pytest.mark.parametrize("B, nb, C, H, P, N", [(8, 1, 128, 80, 64, 128), (2, 4, 256, 80, 64, 128)])
+def test_ssd_intra_chunk_bwd_mma_repeats_bit_for_bit(cuda, B, nb, C, H, P, N):
+    """Three launches, no atomics: two calls on the same inputs give the
+    same bits, in place of x, B and C read as slices of one projection."""
+    assert SSD.ssd_bwd_path(torch.bfloat16, C, P, N) == "mma"
+    args, grads = _ssd_bwd_case(cuda, B, nb, C, H, P, N, C)
+    x, dt, A, Bm, Cm = args
+    # token rows of one projection, as the model hands them
+    proj = torch.cat([x.reshape(B, nb, C, H * P), Bm, Cm], dim=-1)
+    xs = proj[..., :H * P].unflatten(-1, (H, P))
+    bs, cs = proj[..., H * P:H * P + N], proj[..., H * P + N:]
+    first = SSD.ssd_intra_chunk_bwd(xs, dt, A, bs, cs, *grads)
+    second = SSD.ssd_intra_chunk_bwd(xs, dt, A, bs, cs, *grads)
+    torch.cuda.synchronize()
+    for a, b, w in zip(first, second, SSD.ssd_intra_chunk_bwd_plain(*args, *grads)):
+        assert torch.equal(a, b)
+        assert _rel_max(a, w) <= TOL_BWD_MAX[torch.bfloat16]
+
+
+@pytest.mark.parametrize("design", ["vec", "scalar"])
+@pytest.mark.parametrize("B, L, W", [(8, 128, 4096), (2, 13, 4096), (1, 2049, 4096),
+                                     (2, 300, 512), (3, 7, 64)])
+def test_rglru_scan_bwd_designs_match_plain_and_repeat(cuda, B, L, W, design):
+    """bf16, the vectorised lanes and the first design (by name): the plain
+    answer, and two calls give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(L + W + 1)
+    x, r, i = (torch.randn((B, L, W), generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    lam = torch.randn((W,), generator=g, device=cuda)
+    h0 = torch.randn((B, W), generator=g, device=cuda).to(torch.bfloat16)
+    out, _ = RG.rglru_scan(x, r, i, lam, h0)
+    dh = torch.randn((B, L, W), generator=g, device=cuda)
+    dht = torch.randn((B, W), generator=g, device=cuda)
+    first = RG._rglru_scan_bwd_cuda(x, r, i, lam, h0, out, dh, dht, design=design)
+    second = RG._rglru_scan_bwd_cuda(x, r, i, lam, h0, out, dh, dht, design=design)
+    torch.cuda.synchronize()
+    for a, b, w in zip(first, second, RG.rglru_scan_bwd_plain(x, r, i, lam, h0, out, dh, dht)):
+        assert torch.equal(a, b)
+        assert _rel_max(a, w) <= TOL_BWD_MAX[torch.bfloat16]
+
+
 @pytest.mark.parametrize("arch", ["granite_moe_1b", "mamba2_2p7b", "recurrentgemma_9b",
                                   "deepseek_v2_236b"])
 def test_train_loss_and_grads_on_cuda_match_cpu(cuda, arch):
