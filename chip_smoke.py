@@ -112,7 +112,31 @@ Phases, each printing one JSON line:
    hybrid 3), in float32 (``TRAIN_XCHECK``; the MoE routing equal), and a
    checkpoint save and resume in bf16 whose next loss equals the
    uninterrupted run's bit for bit;
-13. ``timing`` — kernel, plain-version, library and bound times at each
+13. ``mesh_train`` — ``Trainer(cfg, tcfg, mesh=mesh)`` for granite-moe-1b
+   at full width on a ``(data, model) = (1, 1)`` DeviceMesh
+   (``ElasticMesh(model_parallel=1).mesh_for()`` under NCCL, world size
+   1): parameters and AdamW moments DTensors, the MoE's expert-parallel
+   branch and every kernel call through ``local_map``; three steps of
+   batch 8 x 128 bit-equal to ``Trainer(mesh=None)`` (losses, every
+   parameter, the launch counts, each counted from 0 around its run),
+   step ms and peak memory beside the unsharded run's; one save on the
+   mesh and a restore without it, the next loss bit-equal;
+14. ``colocated`` — ``examples/serve_colocated.py``'s scenario at full
+   width: phi4-mini and granite-moe-1b in partition 0, gemma3-4b and
+   stablelm-12b in partition 1 (41.4 GB of bf16 weights), variants b1 / b4
+   whose calls end in ``torch.cuda.synchronize()`` (estimates synchronised
+   too), six chained bursts, once with the example's budgets and
+   deadlines and once with each times 10 (the example's are set for its
+   reduced CPU models); per model jobs, variants, estimated and
+   actual ms, latency p50 / p99, drops and misses; the launches (counted
+   from 0 around the run) one flash forward per attention layer per job
+   that ran, one ``moe_gmm`` per MoE layer per planner job;
+15. ``dryrun`` — two production-mesh cells of ``repro_torch.launch.dryrun``
+   on fake tensors under a fake process group (granite-moe-1b
+   ``train_4k`` on ``pod16x16``, deepseek-v2 ``decode_32k`` on
+   ``pod2x16x16``): status OK, terms finite, the card untouched; asked
+   for CUDA, it raises;
+16. ``timing`` — kernel, plain-version, library and bound times at each
    path's shapes (the backward kernels at the train shapes, the SSD and
    RG-LRU ones beside the designs they replaced and with the L2 flushed
    between calls), then the ``kernels`` line; ``moe_gmm`` is also held on
@@ -120,14 +144,14 @@ Phases, each printing one JSON line:
    float64 oracle (``TOL_MOE_MODEL``), and with ``--moe-baseline
    OTHER/moe_gmm.cu`` another build of it is timed beside this one and
    must give this one's bits;
-14. ``flash_ab`` (only with ``--flash-baseline OTHER/src``) — flash
+17. ``flash_ab`` (only with ``--flash-baseline OTHER/src``) — flash
    attention's per-call and device time at the serve shapes from another
    tree and from this one, each in a fresh process;
-15. ``soa_ab`` (only with ``--soa-baseline OTHER/src``) — the SoA main path
+18. ``soa_ab`` (only with ``--soa-baseline OTHER/src``) — the SoA main path
    (ads_tile and tp_driven, cold and warm) and its 100-round profile from
    another tree and from this one, each in a fresh process, in the order
    baseline, this, this, baseline;
-16. ``ssm_ab`` (only with ``--ssm-baseline OTHER/src``) — ``ssd_intra_chunk``
+19. ``ssm_ab`` (only with ``--ssm-baseline OTHER/src``) — ``ssd_intra_chunk``
    and ``rglru_scan`` per-call and device ms at their long and serve shapes
    (``SSM_AB_CASES``) from another tree and from this one, each in a fresh
    process, in the same order.
@@ -183,7 +207,8 @@ F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 
 PHASES = ("device", "build", "kernel", "sampler", "main", "loop", "equiv",
-          "lockstep", "sweep", "profile", "serve", "train", "timing")
+          "lockstep", "sweep", "profile", "serve", "train", "mesh_train", "colocated",
+          "dryrun", "timing")
 KERNELS = ("ladder_grant", "flash_attention", "flash_attention_bwd", "moe_gmm",
            "moe_gmm_bwd", "ssd_intra_chunk", "ssd_intra_chunk_bwd", "rglru_scan",
            "rglru_scan_bwd")
@@ -2422,6 +2447,282 @@ def phase_train():
     return {arch: _train_stack(arch, layers) for arch, layers in TRAIN_STACKS}
 
 
+# ---------------------------------------------------------------------------
+# the mesh, the colocated server and the dry run
+# ---------------------------------------------------------------------------
+MESH_TRAIN = dict(arch="granite_moe_1b", batch=8, seq_len=128, steps=3, seed=0)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _mesh_run(cfg, mesh, steps, ckpt_dir=None):
+    """``Trainer(cfg, mesh=mesh)`` for ``steps`` steps of the launcher's
+    traffic, every launch counter set to 0 just before and read just after."""
+    dcfg = DataConfig(batch=MESH_TRAIN["batch"], seq_len=MESH_TRAIN["seq_len"])
+    tcfg = TrainConfig(steps=steps, log_every=1, checkpoint_dir=ckpt_dir,
+                       checkpoint_every=steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()          # another trainer's, if any
+    trainer = Trainer(cfg, tcfg, mesh=mesh, seed=MESH_TRAIN["seed"], device="cuda")
+    _zero_counts()
+    torch.cuda.synchronize()
+    hist = trainer.fit(synthetic_stream(cfg, dcfg, device="cuda"))["history"]
+    torch.cuda.synchronize()
+    return trainer, hist, _counts(), torch.cuda.max_memory_allocated() - held
+
+
+def phase_mesh_train():
+    """``Trainer(mesh=...)`` for granite-moe-1b at full width on a one-rank
+    ``(data, model) = (1, 1)`` mesh (NCCL, world size 1; ``ElasticMesh``):
+    every placement is whole, so losses and every parameter must equal
+    ``Trainer(mesh=None)``'s bit for bit over three steps; then one save on
+    the mesh and a restore without it, and the next loss bit-equal."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distribution import ElasticMesh
+
+    cfg = get_config(MESH_TRAIN["arch"])
+    steps = MESH_TRAIN["steps"]
+    base, base_hist, base_launches, base_peak = _mesh_run(cfg, None, steps)
+    ckpt = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = ElasticMesh(model_parallel=1).mesh_for()
+        check(tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model"),
+              f"mesh_train: mesh {mesh}")
+        meshed, hist, launches, peak = _mesh_run(cfg, mesh, steps, ckpt)
+        leaves = list(zip(_leaves(base.params), _leaves(meshed.params)))
+        check(all(isinstance(b, DTensor) for _, b in leaves), "mesh_train: a plain leaf")
+        unequal = sum(not torch.equal(a.detach(), b.full_tensor().detach()) for a, b in leaves)
+        del meshed, leaves
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    losses = [h["loss"] for h in hist]
+    base_losses = [h["loss"] for h in base_hist]
+    check(losses == base_losses, f"mesh_train: losses {losses} against {base_losses}")
+    check(unequal == 0, f"mesh_train: {unequal} parameters differ from mesh=None")
+    check(launches == base_launches and all(
+        launches[k] > 0 for k in ("flash_attention", "flash_attention_bwd", "moe_gmm",
+                                  "moe_gmm_bwd")), f"mesh_train: launches {launches} "
+          f"against {base_launches}")
+    # the same payload resumes without the mesh: step 4 against mesh=None's
+    t0 = time.perf_counter()
+    resumed = Trainer(cfg, TrainConfig(steps=steps + 1, log_every=1, checkpoint_dir=ckpt),
+                      seed=MESH_TRAIN["seed"], device="cuda")
+    check(resumed.restore_if_available() and resumed.step == steps, "mesh_train: no checkpoint")
+    dcfg = DataConfig(batch=MESH_TRAIN["batch"], seq_len=MESH_TRAIN["seq_len"])
+    next_loss = resumed.fit(synthetic_stream(cfg, dcfg, start_step=steps, device="cuda"))
+    resume_s = time.perf_counter() - t0
+    del resumed
+    torch.cuda.empty_cache()
+    base.tcfg.steps = steps + 1
+    base_next = base.fit(synthetic_stream(cfg, dcfg, start_step=steps, device="cuda"))
+    del base
+    torch.cuda.empty_cache()
+    nbytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    a, b = next_loss["history"][-1]["loss"], base_next["history"][-1]["loss"]
+    res = dict(arch=cfg.name, params=cfg.param_count(), dtype=cfg.dtype, mesh=[1, 1],
+               batch=MESH_TRAIN["batch"], seq_len=MESH_TRAIN["seq_len"], steps=steps,
+               losses=losses, bit_equal=True, launches=launches,
+               step_ms=[1e3 * h["dt_s"] for h in hist],
+               step_ms_unsharded=[1e3 * h["dt_s"] for h in base_hist],
+               peak_mem_gb=peak / 1e9, peak_mem_gb_unsharded=base_peak / 1e9,
+               resume_loss=a, resume_loss_unsharded=b, checkpoint_bytes=nbytes,
+               resume_s=resume_s)
+    emit("mesh_train", **res)
+    check(a == b, f"mesh_train: resumed loss {a} against {b}")
+    return res
+
+
+#: ``examples/serve_colocated.py``'s scenario at full width: name, arch,
+#: partition, budget_s, downstream_budget_s
+COLOCATED = (("perception", "phi4_mini_3p8b", 0, 0.08, 0.05),
+             ("planner", "granite_moe_1b", 0, 0.05, 0.0),
+             ("cockpit_seg", "gemma3_4b", 1, 0.10, 0.0),
+             ("cockpit_depth", "stablelm_12b", 1, 0.10, 0.0))
+COLOCATED_RUN = dict(bursts=6, batches=(1, 4), prompt_len=16, seed=0)
+
+
+def _colocated_model(arch):
+    """Full-width weights on the card and one variant per batch size, each
+    ending in ``torch.cuda.synchronize()`` so the server times the work;
+    estimates from three synchronised warm calls."""
+    cfg = get_config(arch)
+    model = LM(cfg)
+    params = init_params(cfg, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+
+    def fwd(tokens):
+        with torch.no_grad():
+            x = model.embed(params, {"tokens": tokens})
+            x, _ = model.backbone(params, x, positions=torch.arange(x.shape[1], device="cuda"))
+            out = model.logits_last(params, x[:, -1])
+        torch.cuda.synchronize()
+        return out
+
+    variants = {}
+    for b in COLOCATED_RUN["batches"]:
+        toks = torch.ones((b, COLOCATED_RUN["prompt_len"]), dtype=torch.int32, device="cuda")
+        fwd(toks)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fwd(toks)
+        est = (time.perf_counter() - t0) / 3
+        variants[f"b{b}"] = ((lambda payload, b=b: fwd(
+            torch.as_tensor(payload[:b], device="cuda"))), est)
+    return cfg, params, variants
+
+
+def _colocated_pass(models, cfgs, scale):
+    """The example's six chained bursts with every budget and deadline
+    times ``scale``; launches counted from 0 around the server's run."""
+    from repro_torch.serving import ColocatedServer, ServedModel
+
+    served = {name: ServedModel(name=name, variants=m.variants, partition=m.partition,
+                                budget_s=m.budget_s * scale,
+                                downstream_budget_s=m.downstream_budget_s * scale)
+              for name, m in models.items()}
+    server = ColocatedServer(served, num_partitions=2)
+    rng = np.random.RandomState(COLOCATED_RUN["seed"])
+    for _ in range(COLOCATED_RUN["bursts"]):
+        toks = rng.randint(0, 100, (4, COLOCATED_RUN["prompt_len"])).astype(np.int32)
+
+        def chain_cb(_out, toks=toks):
+            server.submit("planner", toks, deadline_s=0.15 * scale)
+
+        server.submit("perception", toks, deadline_s=0.25 * scale, done_cb=chain_cb)
+        server.submit("cockpit_seg", toks, deadline_s=1.0 * scale)
+        server.submit("cockpit_depth", toks, deadline_s=1.0 * scale)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    log = server.run(duration_s=60.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    ran = [r for r in log if not r["dropped"]]
+    want = dict.fromkeys(COUNTED, 0)
+    for r in ran:
+        cfg = cfgs[r["model"]]
+        want["flash_attention"] += cfg.num_layers
+        if cfg.num_experts:
+            want["moe_gmm"] += cfg.num_layers - cfg.first_dense_layers
+    n_perception = sum(1 for r in ran if r["model"] == "perception")
+    check(len(log) == 3 * COLOCATED_RUN["bursts"] + n_perception,
+          f"colocated x{scale}: {len(log)} jobs logged")
+    check(ran and launches == want, f"colocated x{scale}: launches {launches}, want {want}")
+    per_model = {}
+    for name in models:
+        recs = [r for r in log if r["model"] == name]
+        ok = [r for r in recs if not r["dropped"]]
+        lat = [1e3 * r["latency_s"] for r in ok]
+        per_model[name] = dict(
+            arch=cfgs[name].name, jobs=len(recs), ran=len(ok),
+            dropped=sum(r["dropped"] for r in recs),
+            missed=sum(r["missed"] for r in ok),
+            variants={v: sum(r["variant"] == v for r in ok) for v in models[name].variants},
+            est_ms={v: 1e3 * e for v, (_, e) in models[name].variants.items()},
+            actual_ms=[1e3 * r["actual_s"] for r in ok],
+            latency_ms_p50=float(np.percentile(lat, 50)) if lat else None,
+            latency_ms_p99=float(np.percentile(lat, 99)) if lat else None)
+    return dict(scale=scale, models=per_model, jobs=len(log), wall_s=wall, launches=launches)
+
+
+def phase_colocated():
+    """The colocated server (``serving/colocated.py``, the reference's
+    verbatim) holding four full-width models in two partitions, serving
+    the example's six chained bursts twice: with its budgets and deadlines
+    as they are (set for its reduced models on a CPU: at full width most
+    chained planner jobs miss their end-to-end deadline and are dropped by
+    the server's rule), and with every budget and deadline times 10, where
+    the planner runs too.  Every job runs on the kernels: launches counted
+    from 0 around each run and held to one flash forward per attention
+    layer per job that ran, one ``moe_gmm`` per MoE layer per planner job."""
+    from repro_torch.serving import ServedModel
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models, cfgs, keep = {}, {}, []
+    for name, arch, part, budget, down in COLOCATED:
+        cfg, params, variants = _colocated_model(arch)
+        keep.append(params)
+        cfgs[name] = cfg
+        models[name] = ServedModel(name=name, variants=variants, partition=part,
+                                   budget_s=budget, downstream_budget_s=down)
+    setup_s = time.perf_counter() - t0
+    weight_gb = sum(p.numel() * p.element_size() for t in keep for p in _leaves(t)) / 1e9
+    passes = [_colocated_pass(models, cfgs, scale) for scale in (1, 10)]
+    launches = {k: sum(p["launches"][k] for p in passes) for k in COUNTED}
+    res = dict(passes=passes, setup_s=setup_s, weight_gb=weight_gb,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    emit("colocated", **res)
+    check(passes[-1]["launches"]["moe_gmm"] > 0, "colocated: the planner never ran")
+    del models, keep
+    torch.cuda.empty_cache()
+    return res
+
+
+#: the two production-mesh cells the card's run traces (the whole sweep:
+#: ``python -m repro_torch.launch.dryrun --both-meshes``)
+DRYRUN_CELLS = (("granite_moe_1b", "train_4k", False), ("deepseek_v2_236b", "decode_32k", True))
+
+
+def phase_dryrun():
+    """Two cells of the production-mesh dry run, on fake tensors under a
+    fake process group of 256 / 512 ranks: status OK, every term finite,
+    the card untouched (no allocation, no kernel launch); asked for CUDA,
+    it raises."""
+    from repro_torch.analysis.roofline import HW
+    from repro_torch.launch import dryrun
+
+    try:
+        dryrun.run_cell("granite_moe_1b", "train_4k", device="cuda")
+        check(False, "dryrun: a CUDA device was accepted")
+    except ValueError:
+        pass
+    cells = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = dryrun.run_cell(arch, shape, multi_pod=multi, verbose=False)
+        wall = time.perf_counter() - t0
+        terms = res["roofline"]
+        check(res["status"] == "OK" and all(np.isfinite(terms[k]) for k in (
+            "compute_s", "memory_s", "collective_s", "flops_per_device", "bytes_per_device")),
+            f"dryrun {arch} {shape}: {res.get('status')}")
+        check(torch.cuda.memory_allocated() == mem0 and not any(_counts().values()),
+              f"dryrun {arch} {shape} touched the card")
+        cells.append(dict(arch=arch, shape=shape, mesh=res["mesh"], chips=res["chips"],
+                          wall_s=wall, **{k: terms[k] for k in (
+                              "flops_per_device", "bytes_per_device",
+                              "collective_bytes_per_device", "collective_breakdown",
+                              "compute_s", "memory_s", "collective_s", "dominant",
+                              "model_flops_global", "useful_flops_ratio",
+                              "roofline_fraction")},
+                          collective_ops=res["collective_ops"],
+                          argument_bytes_per_device=res["memory"]["argument_bytes_per_device"]))
+    res = dict(cells=cells, constants=dict(name=HW.name, peak_flops=HW.peak_flops,
+                                           hbm_bw=HW.hbm_bw, link_bw=HW.link_bw,
+                                           source="spec sheet, not measured"))
+    emit("dryrun", **res)
+    return res
+
+
 def _bound(nbytes, nops, ops_per_s):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -3470,7 +3771,8 @@ def phase_soa_ab(baseline_src):
                        for p in ("ads_tile", "tp_driven")})
 
 
-def phase_timing(problem, soa_launches, serve, errs, moe_baseline=None, train=None):
+def phase_timing(problem, soa_launches, serve, errs, moe_baseline=None, train=None,
+                 extra=None):
     kernels = []
     if problem is not None:
         kernels.append(_ladder_timing(problem, soa_launches["ladder_grant"], errs))
@@ -3507,6 +3809,11 @@ def phase_timing(problem, soa_launches, serve, errs, moe_baseline=None, train=No
                                        per_step["ssd_intra_chunk_bwd"], errs))
         kernels.append(_rglru_bwd_timing(total["rglru_scan_bwd"], per_step["rglru_scan_bwd"],
                                          errs))
+    # the later paths' own runs (each counted from 0 around its run)
+    for path, counts in (extra or {}).items():
+        for row in kernels:
+            if counts.get(row["name"]):
+                row[f"launches_{path}"] = counts[row["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
@@ -3562,8 +3869,17 @@ def main():
     if "train" in only:
         train = phase_train()
         torch.cuda.empty_cache()
+    extra = {}
+    if "mesh_train" in only:
+        extra["mesh_train"] = phase_mesh_train()["launches"]
+        torch.cuda.empty_cache()
+    if "colocated" in only:
+        extra["colocated"] = phase_colocated()["launches"]
+        torch.cuda.empty_cache()
+    if "dryrun" in only:
+        phase_dryrun()
     if "timing" in only:
-        phase_timing(problem, launches, serve, errs, args.moe_baseline, train)
+        phase_timing(problem, launches, serve, errs, args.moe_baseline, train, extra)
     if args.flash_baseline:
         phase_flash_ab(args.flash_baseline)
     if args.soa_baseline:

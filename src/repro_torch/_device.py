@@ -7,8 +7,9 @@ an error, never a silent change of platform.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "refuse_dtensor"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -21,3 +22,15 @@ def resolve_device(device="cuda") -> torch.device:
             "port on the CPU"
         )
     return dev
+
+
+def refuse_dtensor(what: str, *tensors) -> None:
+    """Raise if a DTensor reaches a kernel wrapper: the kernels take raw
+    device pointers of whole local tensors, so a sharded call goes
+    through ``local_map`` (``kernels/ops.py``), never straight here."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"{what}: a DTensor reached the kernel wrapper; call it on the "
+                "local shards through repro_torch.kernels.ops (local_map)"
+            )

@@ -11,17 +11,66 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List
+from typing import List, Optional, Sequence
+
+import numpy as np
 
 __all__ = ["ElasticMesh", "StragglerMonitor"]
 
 
+def _rank(d) -> int:
+    """A rank, given as an int or as a device stub carrying ``.id``."""
+    return int(getattr(d, "id", d))
+
+
 class ElasticMesh:
+    """``mesh_for(ranks=None)``: the mesh over ``ranks`` (default: every
+    rank of the default process group, which must be initialised)."""
+
     def __init__(self, model_parallel: int = 1):
-        raise NotImplementedError(
-            "ElasticMesh is not ported yet: ROADMAP: distribution/* and "
-            "launch/{mesh,dryrun}.py (A8)"
-        )
+        self.model_parallel = model_parallel
+
+    @staticmethod
+    def grid(ranks: Sequence, model_parallel: int) -> np.ndarray:
+        """The ``(usable // mp, mp)`` rank grid of ``ranks``."""
+        ranks = [_rank(d) for d in ranks]
+        mp = model_parallel
+        usable = (len(ranks) // mp) * mp
+        if usable == 0:
+            raise RuntimeError(
+                f"not enough devices ({len(ranks)}) for model_parallel={mp}"
+            )
+        return np.asarray(ranks[:usable]).reshape(usable // mp, mp)
+
+    def mesh_for(self, ranks: Optional[Sequence] = None):
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from ..launch.mesh import mesh_device_type
+
+        if ranks is None:
+            ranks = range(dist.get_world_size())
+        grid = self.grid(ranks, self.model_parallel)
+        return DeviceMesh(mesh_device_type(), grid.tolist(),
+                          mesh_dim_names=("data", "model"))
+
+    @staticmethod
+    def shrink_grid(grid: np.ndarray, failed: Sequence) -> np.ndarray:
+        failed_ids = {_rank(d) for d in failed}
+        rows = [row for row in np.asarray(grid).reshape(grid.shape[0], -1)
+                if not any(int(r) in failed_ids for r in row)]
+        if not rows:
+            raise RuntimeError("no healthy data-parallel rows remain")
+        return np.stack(rows)
+
+    def shrink(self, mesh, failed: Sequence):
+        """New mesh excluding failed ranks (whole data-rows drop so the
+        model-parallel groups stay intact)."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        grid = self.shrink_grid(mesh.mesh.cpu().numpy(), failed)
+        return DeviceMesh(mesh.device_type, grid.tolist(),
+                          mesh_dim_names=mesh.mesh_dim_names)
 
 
 @dataclasses.dataclass

@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .. import _cuda
+from .._device import refuse_dtensor
 from ..models.common import _IMAX, NEG_INF, _apply_softcap, _mask_for, chunked_attention
 
 __all__ = ["FlashAttentionFn", "FlashBwdPlan", "FlashPlan", "bwd_path", "flash_attention",
@@ -326,6 +327,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_offset=q_offset, kv_offset=kv_offset, kv_valid_len=kv_valid_len,
               kv_positions=kv_positions, return_lse=return_lse)
+    refuse_dtensor("flash_attention", q, k, v, kv_positions)
     if q.device.type == "cuda":
         return _flash_attention_cuda(q, k, v, **kw)
     if q.device.type != "cpu":
@@ -559,6 +561,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0, softc
     ``flash_attention_bwd.launches`` counts kernel launches."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_offset=q_offset, kv_offset=kv_offset, kv_valid_len=kv_valid_len)
+    refuse_dtensor("flash_attention_bwd", q, k, v, out, lse, dout)
     if q.device.type == "cuda":
         return _flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
     if q.device.type != "cpu":

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _cuda
+from .._device import refuse_dtensor
 
 __all__ = ["moe_bwd_path", "moe_gmm", "moe_gmm_oracle64", "moe_gmm_plain", "moe_gmm_bwd",
            "moe_gmm_bwd_plain", "MoeGmmFn"]
@@ -144,6 +145,7 @@ def moe_gmm(x, wg, wu, wd):
     for a CUDA tensor (raising if it cannot build or launch), the plain
     version for a CPU tensor.  ``moe_gmm.launches`` counts kernel
     launches."""
+    refuse_dtensor("moe_gmm", x, wg, wu, wd)
     if x.device.type == "cuda":
         return _moe_gmm_cuda(x, wg, wu, wd)
     if x.device.type != "cpu":
@@ -205,6 +207,7 @@ def moe_gmm_bwd(x, wg, wu, wd, dy):
     kernel for a CUDA tensor (raising if it cannot build or launch), the
     plain version for a CPU tensor.  Returns ``(dx, dwg, dwu, dwd)``.
     ``moe_gmm_bwd.launches`` counts kernel launches."""
+    refuse_dtensor("moe_gmm_bwd", x, wg, wu, wd, dy)
     if x.device.type == "cuda":
         return _moe_gmm_bwd_cuda(x, wg, wu, wd, dy)
     if x.device.type != "cpu":

@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from .. import _cuda
+from .._device import refuse_dtensor
 
 __all__ = ["rglru_scan", "rglru_scan_plain", "rglru_scan_bwd", "rglru_scan_bwd_plain",
            "RglruScanFn", "rglru_bwd_path"]
@@ -162,6 +163,7 @@ def rglru_scan(x, r, i, lam, h0):
     """The RG-LRU scan on whatever device ``x`` lies on: the CUDA kernel for
     a CUDA tensor (raising if it cannot build or launch), the plain version
     for a CPU tensor.  ``rglru_scan.launches`` counts kernel launches."""
+    refuse_dtensor("rglru_scan", x, r, i, lam, h0)
     if x.device.type == "cuda":
         return _rglru_scan_cuda(x, r, i, lam, h0)
     if x.device.type != "cpu":
@@ -251,6 +253,7 @@ def rglru_scan_bwd(x, r, i, lam, h0, out, dh, dh_t=None):
     ``dh_t`` the gradients of h and h_T (``dh_t`` may be None).  Returns
     ``(dx, dr, di, dlam, dh0)``.  ``rglru_scan_bwd.launches`` counts kernel
     launches."""
+    refuse_dtensor("rglru_scan_bwd", x, r, i, lam, h0, out, dh, dh_t)
     if x.device.type == "cuda":
         return _rglru_scan_bwd_cuda(x, r, i, lam, h0, out, dh, dh_t)
     if x.device.type != "cpu":

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _cuda
+from .._device import refuse_dtensor
 
 __all__ = ["ssd_intra_chunk", "ssd_intra_chunk_plain", "chunk_cumsum", "ssd_plan", "SsdPlan",
            "ssd_intra_chunk_bwd", "ssd_intra_chunk_bwd_plain", "SsdIntraChunkFn",
@@ -381,6 +382,7 @@ def ssd_intra_chunk(x, dt, A, Bm, Cm):
     kernel for a CUDA tensor (raising if it cannot build or launch), the
     plain version for a CPU tensor.  ``ssd_intra_chunk.launches`` counts
     kernel launches."""
+    refuse_dtensor("ssd_intra_chunk", x, dt, A, Bm, Cm)
     if x.device.type == "cuda":
         return _ssd_intra_chunk_cuda(x, dt, A, Bm, Cm)
     if x.device.type != "cpu":
@@ -486,6 +488,7 @@ def ssd_intra_chunk_bwd(x, dt, A, Bm, Cm, dy=None, dcontrib=None, ddecay=None):
     are the gradients of y_intra, contrib and chunk_decay (None: zero).
     Returns ``(dx, ddt, dA, dB, dC)``.  ``ssd_intra_chunk_bwd.launches``
     counts kernel launches."""
+    refuse_dtensor("ssd_intra_chunk_bwd", x, dt, A, Bm, Cm, dy, dcontrib, ddecay)
     if x.device.type == "cuda":
         return _ssd_intra_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy, dcontrib, ddecay)
     if x.device.type != "cpu":

@@ -1,10 +1,19 @@
 """Shared NN substrate: init, norms, RoPE, chunked (flash-style)
-attention, the gated MLP and the chunked cross-entropy.
+attention, the gated MLP, the chunked cross-entropy and the activation
+sharding constraint.
 
 Functional torch over nested-dict parameter trees, in the reference's
 layouts (attention is ``(B, H, L, D)``).  Attention's gradient is
 :class:`repro_torch.kernels.flash_attention.FlashAttentionFn`, whose
 plain backward is the reference's blockwise ``_flash_bwd``.
+
+On a mesh the parameters are DTensors (``training/trainer.py``,
+``launch/dryrun.py``) and so are the activations; ``ashard``
+(:mod:`repro_torch.distribution.sharding`'s, exported here under the
+reference's name with ``BATCH_AXES``) redistributes one to the
+reference's activation layout, and is a no-op on a plain tensor, as the
+reference's is outside a mesh.  The same model code runs on one device
+and on the production mesh.
 """
 from __future__ import annotations
 
@@ -13,9 +22,14 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from ..distribution.sharding import BATCH_AXES, ashard, local_call, placements, to_placements
+
 __all__ = [
+    "ashard",
+    "BATCH_AXES",
     "NEG_INF",
     "dense_init",
     "rms_norm",
@@ -200,8 +214,10 @@ def gated_mlp_init(gen, d_model: int, d_ff: int, dtype, *, device="cpu", stack: 
 def gated_mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     h = torch.matmul(x, params["wg"])
     u = torch.matmul(x, params["wu"])
+    h = ashard(h, BATCH_AXES, None, "model")
     a = F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
-    return torch.matmul(a * u, params["wd"])
+    out = torch.matmul(a * u, params["wd"])
+    return ashard(out, BATCH_AXES, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -239,14 +255,46 @@ def _logits_f32(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), emb.float().t())
 
 
+def _logits_on_mesh(x: DTensor, emb: DTensor) -> DTensor:
+    """:func:`_logits_f32` per shard: rows batch-sharded, the vocab sharded
+    over 'model' (the reference's constraint on the logits block, which
+    keeps a (B, chunk, 262k) float32 block off any one device)."""
+    px = placements(x, (BATCH_AXES, None, None))
+    pe = placements(emb, ("model", None))
+    shape = (x.shape[0], x.shape[1], emb.shape[0])
+    pl = to_placements((BATCH_AXES, None, "model"), x.device_mesh, shape)
+    return local_call(_logits_f32, x.device_mesh, (x, emb), (px, pe), pl)
+
+
+def _vocab_split(logits: torch.Tensor) -> bool:
+    """Whether ``logits`` is a DTensor whose last (vocab) dim is split over
+    more than one rank."""
+    return isinstance(logits, DTensor) and any(
+        p.is_shard(logits.dim() - 1) and n > 1
+        for p, n in zip(logits.placements, logits.device_mesh.shape))
+
+
 def _xent_chunk(xc: torch.Tensor, emb: torch.Tensor, lc: torch.Tensor, softcap: float):
     """Summed cross-entropy of one chunk over its valid (``>= 0``) labels,
-    and their count."""
-    logits = _apply_softcap(_logits_f32(xc, emb), softcap)
-    lse = torch.logsumexp(logits, dim=-1)
-    # a gather, not the reference's one-hot contraction: equal for finite
-    # logits, without another (B, chunk, V) float32 block
-    gold = logits.gather(-1, lc.clamp(min=0).unsqueeze(-1)).squeeze(-1)
+    and their count.
+
+    With the vocab split over ranks, the log-sum-exp takes
+    ``torch.logsumexp``'s formula (max, then the sum of exponentials) in
+    two partial reductions, and the gold logit the reference's one-hot
+    contraction, so no rank gathers the whole vocab."""
+    logits = _logits_on_mesh(xc, emb) if isinstance(xc, DTensor) else _logits_f32(xc, emb)
+    logits = _apply_softcap(logits, softcap)
+    idx = lc.clamp(min=0)
+    if _vocab_split(logits):
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        m = torch.where(m.abs() == math.inf, torch.zeros_like(m), m)
+        lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m.squeeze(-1)
+        gold = torch.sum(logits * F.one_hot(idx, logits.shape[-1]).to(logits.dtype), dim=-1)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        # a gather, not the reference's one-hot contraction: equal for
+        # finite logits, without another (B, chunk, V) float32 block
+        gold = logits.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
     valid = (lc >= 0).float()
     return torch.sum((lse - gold) * valid), torch.sum(valid)
 

@@ -18,6 +18,13 @@ reference's ``jax.checkpoint``), in groups of ~sqrt(L) as well when
 kernels' backwards: attention's, ``moe_gmm``'s, ``ssd_intra_chunk``'s and
 ``rglru_scan``'s (``kernels/ops.py``).
 
+On a mesh (DTensor parameters, ``training/trainer.py`` and
+``launch/dryrun.py``) the activations carry the reference's constraints
+(:func:`~repro_torch.models.common.ashard`): the embeddings
+batch-sharded, each layer's residual input sequence-sharded over
+'model' when it holds more than one token, and the kernels run on local
+shards (``kernels/ops.py``).  The loss comes back as a plain scalar.
+
 Modality frontends are stubs, as in the reference: phi-3-vision takes
 precomputed patch embeddings put in front of the tokens; musicgen takes
 ``(B, K, S)`` codebook tokens (K embeddings summed, K output heads).
@@ -30,9 +37,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..distribution.sharding import BATCH_AXES, ashard
 from .attention import attn_apply, attn_init
 from .common import chunked_xent, dense_init, gated_mlp, gated_mlp_init, rms_norm
 from .config import ModelConfig
@@ -80,6 +90,20 @@ def _unstack(tree, n: int) -> List:
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in parts} for i in range(n)]
     return list(tree.unbind(0))
+
+
+def _norm_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A block's normed input, its sequence gathered on a mesh before the
+    column-parallel projections (Megatron's sequence parallelism: the
+    residual stays sequence-sharded, the projections see whole rows)."""
+    return ashard(rms_norm(x, w), BATCH_AXES, None, None)
+
+
+def _mixed(out: torch.Tensor) -> torch.Tensor:
+    """A mixing layer's (attention's, SSM's, RG-LRU's) row-parallel output
+    reduced to whole rows before the residual add, as the MLP's is
+    (``gated_mlp``), so its gradient comes back whole too."""
+    return ashard(out, BATCH_AXES, None, None)
 
 
 def _ckpt(fn, *args):
@@ -172,12 +196,13 @@ class LM:
                     f"{cfg.name} takes (B, {cfg.num_codebooks}, S) codebook tokens, "
                     f"got {tuple(toks.shape)}"
                 )
-            x = sum(emb[k][toks[:, k]] for k in range(cfg.num_codebooks)) * scale
+            x = sum(F.embedding(toks[:, k], emb[k])
+                    for k in range(cfg.num_codebooks)) * scale
         else:
-            x = emb[toks] * scale
+            x = F.embedding(toks, emb) * scale
         if cfg.num_patches and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
-        return x
+        return ashard(x, BATCH_AXES, None, None)
 
     # -- backbone ------------------------------------------------------------
     def backbone(self, params, x: torch.Tensor, *, positions: torch.Tensor,
@@ -206,12 +231,16 @@ class LM:
         kk, vv = ("c_kv", "k_rope") if cfg.mla else ("k", "v")
 
         def block(x, i):
+            # sequence-parallel residual carry: the remat-saved per-layer
+            # activations (and their grads) shard over 'model'
+            if x.shape[1] > 1:
+                x = ashard(x, BATCH_AXES, "model", None)
             layer = layers[i]
             c = None
             if cache is not None:
                 c = ((cache["k0"][i], cache["v0"][i]) if i < n_dense
                      else (cache[kk][i - n_dense], cache[vv][i - n_dense]))
-            h = rms_norm(x, layer["ln1"])
+            h = _norm_in(x, layer["ln1"])
             if cfg.mla:
                 out, _ = mla_apply(layer["attn"], h, cfg, positions=positions, cache=c,
                                    cache_pos=cache_pos)
@@ -221,8 +250,8 @@ class LM:
                     window=int(windows[i]), theta=float(thetas[i]), cache=c,
                     cache_pos=cache_pos,
                 )
-            x = x + out
-            h = rms_norm(x, layer["ln2"])
+            x = x + _mixed(out)
+            h = _norm_in(x, layer["ln2"])
             return x + (moe_apply(layer["moe"], h, cfg) if "moe" in layer
                         else gated_mlp(layer["mlp"], h))
 
@@ -271,14 +300,16 @@ class LM:
         layers = _unstack(params["layers"], self.cfg.num_layers)
 
         def block(x, i):
+            if x.shape[1] > 1:
+                x = ashard(x, BATCH_AXES, "model", None)
             state = None if cache is None else {"ssm": cache["ssm"][i],
                                                 "conv": cache["conv"][i]}
-            out, new = mamba_apply(layers[i]["mamba"], rms_norm(x, layers[i]["norm"]),
+            out, new = mamba_apply(layers[i]["mamba"], _norm_in(x, layers[i]["norm"]),
                                    self.cfg, state=state)
             if cache is not None:
                 cache["ssm"][i] = new["ssm"]
                 cache["conv"][i] = new["conv"]
-            return x + out
+            return x + _mixed(out)
 
         if train:
             return self._train_layers(block, x, self.cfg.num_layers), cache
@@ -304,22 +335,24 @@ class LM:
         def block(x, j):
             kind, i = order[j]
             layer = stacks[kind][i]
+            if x.shape[1] > 1 and j < n_att * (k + 1) and j % (k + 1) == 0:
+                x = ashard(x, BATCH_AXES, "model", None)   # each unit's input
             if kind == "lru":
                 state = None if cache is None else {"h": cache["h"][i],
                                                     "conv": cache["conv"][i]}
-                out, new = rglru_apply(layer["lru"], rms_norm(x, layer["ln1"]), cfg, state)
+                out, new = rglru_apply(layer["lru"], _norm_in(x, layer["ln1"]), cfg, state)
                 if cache is not None:
                     cache["h"][i] = new["h"]
                     cache["conv"][i] = new["conv"]
             else:
                 out, _ = attn_apply(
-                    layer["attn"], rms_norm(x, layer["ln1"]), cfg, positions=positions,
+                    layer["attn"], _norm_in(x, layer["ln1"]), cfg, positions=positions,
                     window=cfg.window, theta=cfg.rope_theta,
                     cache=(cache["k"][i], cache["v"][i]) if cache is not None else None,
                     cache_pos=cache_pos, ring=True,
                 )
-            x = x + out
-            return x + gated_mlp(layer["mlp"], rms_norm(x, layer["ln2"]))
+            x = x + _mixed(out)
+            return x + gated_mlp(layer["mlp"], _norm_in(x, layer["ln2"]))
 
         if train:
             return self._train_layers(block, x, len(order)), cache
@@ -342,17 +375,21 @@ class LM:
             losses = [chunked_xent(x, params["embed"][k], labels[:, k],
                                    softcap=cfg.final_logit_softcap)
                       for k in range(cfg.num_codebooks)]
-            return sum(losses) / cfg.num_codebooks
+            return _whole(sum(losses) / cfg.num_codebooks)
         if cfg.num_patches and "patch_embeds" in batch:
             pad = torch.full((labels.shape[0], cfg.num_patches), -1, dtype=labels.dtype,
                              device=labels.device)
             labels = torch.cat([pad, labels], dim=1)
-        return chunked_xent(x, params["embed"], labels, softcap=cfg.final_logit_softcap)
+        return _whole(chunked_xent(x, params["embed"], labels,
+                                   softcap=cfg.final_logit_softcap))
 
     def logits_last(self, params, x_last: torch.Tensor) -> torch.Tensor:
         """(B, D) -> (B, V), or (B, K, V) for codebooks."""
         emb = params["embed"]
-        if self.cfg.num_codebooks:
+        if self.cfg.num_codebooks and isinstance(emb, DTensor):   # one product per codebook
+            out = torch.stack([torch.matmul(x_last, emb[k].t())
+                               for k in range(self.cfg.num_codebooks)], dim=1)
+        elif self.cfg.num_codebooks:
             out = torch.einsum("bd,kvd->bkv", x_last, emb)
         else:
             out = torch.matmul(x_last, emb.t())
@@ -402,6 +439,11 @@ class LM:
         x, cache = self.backbone(params, x, positions=positions, cache=cache,
                                  cache_pos=int(pos))
         return self.logits_last(params, x[:, -1]), cache
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A mesh's loss as a plain tensor (every rank holds the same)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from ..distribution.sharding import (BATCH_AXES, ashard, conv_on_mesh, local_call, model_split,
+                                     placements, to_placements)
 from ..kernels import ops
 from .common import dense_init, rms_norm
 from .config import ModelConfig
@@ -120,7 +123,9 @@ def _split_in(cfg: ModelConfig, zxbcdt: torch.Tensor):
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor] = None):
     """Depthwise causal conv1d; ``state`` is the (B, W-1, C) ring buffer
-    for decode.  Returns (silu(out), new_state)."""
+    for decode.  Returns (silu(out), new_state).  On a mesh, per shard."""
+    if isinstance(xbc, DTensor):
+        return conv_on_mesh(_causal_conv, xbc, w, state)
     width = w.shape[0]
     if state is None:
         ctx = F.pad(xbc, (0, 0, width - 1, 0))
@@ -141,7 +146,10 @@ def mamba_apply(
     din, g, n, h, p = (
         cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     )
-    zxbcdt = torch.matmul(x, params["in_proj"])
+    # gathered to whole rows on a mesh before the split (z, xbc, dt are
+    # slices of its last dim); its gradient then reaches the projection's
+    # backward split as the projection's output is
+    zxbcdt = ashard(torch.matmul(x, params["in_proj"]), BATCH_AXES, None, None)
     z, xbc, dt = _split_in(cfg, zxbcdt)
 
     conv_state = state["conv"] if state is not None else None
@@ -157,7 +165,7 @@ def mamba_apply(
         y, _ = ops.ssd_chunked(xs, dt, A, Bm, Cm, chunk=cfg.ssd_chunk)
         new_state = None
     elif l == 1:
-        y, final = _ssm_step(xs, dt, A, Bm, Cm, state["ssm"], h // g)
+        y, final = _ssm_step_on(xs, dt, A, Bm, Cm, state["ssm"], h // g)
         new_state = {"ssm": final, "conv": new_conv}
     else:  # stateful prefill: chunked scan seeded with the carried state
         y, final = ops.ssd_chunked(xs, dt, A, Bm, Cm, chunk=cfg.ssd_chunk,
@@ -168,6 +176,24 @@ def mamba_apply(
     y = y.reshape(b, l, din).to(x.dtype)   # D is f32; keep model dtype
     y = rms_norm(y * F.silu(z), params["norm"])
     return torch.matmul(y, params["out_proj"]), new_state
+
+
+def _ssm_step_on(xs, dt, A, Bm, Cm, ssm, hpg):
+    """:func:`_ssm_step`; on a mesh, per shard (batch over the batch axes,
+    heads over 'model' where they divide)."""
+    if not isinstance(xs, DTensor):
+        return _ssm_step(xs, dt, A, Bm, Cm, ssm, hpg)
+    mesh, hs = xs.device_mesh, model_split(xs, xs.shape[2])
+    px = placements(xs, (BATCH_AXES, None, hs, None))
+    pbc = placements(Bm, (BATCH_AXES, None, None, None), mesh)
+    ps = to_placements((BATCH_AXES, hs, None, None), mesh, ssm.shape)
+
+    def step(x_, dt_, A_, B_, C_, s_):   # heads per group, of the local heads
+        return _ssm_step(x_, dt_, A_, B_, C_, s_, x_.shape[2] // B_.shape[2])
+
+    return local_call(step, mesh, (xs, dt, A, Bm, Cm, ssm),
+                      (px, placements(dt, (BATCH_AXES, None, hs), mesh),
+                       placements(A, (hs,), mesh), pbc, pbc, ps), (px, ps))
 
 
 def _ssm_step(xs, dt, A, Bm, Cm, ssm, hpg):

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..distribution.sharding import BATCH_AXES, ashard
 from .common import NEG_INF, dense_init, rms_norm, rope
 from .config import ModelConfig
 
@@ -84,6 +85,13 @@ def _absorbed_decode(params, cfg, q_nope, q_rope, c_kv, k_rope, pos: int, b, h, 
     return out_h.reshape(b, 1, h * dv)
 
 
+def _whole_rows(t: torch.Tensor) -> torch.Tensor:
+    """A low-rank projection's output gathered to whole rows on a mesh
+    (it feeds norms, ropes and the caches); its gradient then reaches the
+    projection's backward split as the projection's output is."""
+    return ashard(t, BATCH_AXES, None, None)
+
+
 def mla_apply(
     params: Dict,
     x: torch.Tensor,                   # (B, L, D)
@@ -98,15 +106,16 @@ def mla_apply(
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
 
     # queries
-    cq = rms_norm(torch.matmul(x, params["q_down"]), params["q_norm"])
+    cq = rms_norm(_whole_rows(torch.matmul(x, params["q_down"])), params["q_norm"])
     q = torch.matmul(cq, params["q_up"]).reshape(b, l, h, dn + dr)
     q_nope = q[..., :dn]
     q_rope = rope(q[..., dn:].transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
     q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)                # (B, H, L, dn+dr)
 
     # compressed KV latent and the shared rope key
-    c_kv = rms_norm(torch.matmul(x, params["kv_down"]), params["kv_norm"])
-    k_r = rope(torch.matmul(x, params["k_rope"]), positions, cfg.rope_theta)  # (B, L, dr)
+    c_kv = rms_norm(_whole_rows(torch.matmul(x, params["kv_down"])), params["kv_norm"])
+    k_r = rope(_whole_rows(torch.matmul(x, params["k_rope"])), positions,
+               cfg.rope_theta)                                             # (B, L, dr)
 
     new_cache = None
     kv_valid = None

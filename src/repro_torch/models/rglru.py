@@ -19,8 +19,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..kernels import ops
+from ..distribution.sharding import conv_on_mesh
 from .common import dense_init
 from .config import ModelConfig
 
@@ -49,6 +51,8 @@ def rglru_init(gen, cfg: ModelConfig, *, device="cpu", stack: int = 0) -> Dict:
 
 
 def _conv1d(x, w, state=None):
+    if isinstance(x, DTensor):   # per shard
+        return conv_on_mesh(_conv1d, x, w, state)
     width = w.shape[0]
     if state is None:
         ctx = F.pad(x, (0, 0, width - 1, 0))

@@ -877,3 +877,108 @@ def test_train_loss_and_grads_on_cuda_match_cpu(cuda, arch):
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
     for (name, a), (_, b) in zip(grads["cuda"], grads["cpu"]):
         assert _rel_max(a, b) <= 1e-4, name
+
+
+# ---------------------------------------------------------------------------
+# the mesh and the colocated server on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def nccl_world(cuda):
+    """A one-rank NCCL process group, destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b", "phi4_mini_3p8b", "mamba2_2p7b",
+                                  "recurrentgemma_9b"])
+def test_mesh_train_on_one_rank_is_bit_equal_to_no_mesh(nccl_world, arch):
+    """``Trainer(mesh=(1, 1))`` on the card: every placement whole, so the
+    kernels see the unsharded tensors and the run gives mesh=None's bits."""
+    from repro_torch.distribution import ElasticMesh
+    from repro_torch.training import TrainConfig, Trainer
+    from repro_torch.training.data import DataConfig, synthetic_stream
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="bfloat16")
+    dcfg = DataConfig(batch=2, seq_len=32, seed=1)
+    runs = []
+    for mesh in (None, ElasticMesh(1).mesh_for()):
+        t = Trainer(cfg, TrainConfig(steps=2, log_every=1), mesh=mesh, device="cuda")
+        hist = t.fit(synthetic_stream(cfg, dcfg, device="cuda"))["history"]
+        runs.append(([h["loss"] for h in hist], [
+            (p.full_tensor() if mesh is not None else p).detach() for p in tree_leaves(t.params)]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+def test_dtensor_never_reaches_a_kernel_wrapper(nccl_world):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.distribution import ElasticMesh
+
+    mesh = ElasticMesh(1).mesh_for()
+    q = distribute_tensor(torch.randn(1, 2, 8, 64, device="cuda", dtype=torch.bfloat16), mesh,
+                          [Replicate(), Replicate()])
+    with pytest.raises(TypeError, match="DTensor"):
+        FA.flash_attention(q, q, q)
+    x = distribute_tensor(torch.randn(2, 8, 64, device="cuda", dtype=torch.bfloat16), mesh,
+                          [Replicate(), Replicate()])
+    w = distribute_tensor(torch.randn(2, 64, 32, device="cuda", dtype=torch.bfloat16), mesh,
+                          [Replicate(), Replicate()])
+    with pytest.raises(TypeError, match="DTensor"):
+        MG.moe_gmm(x, w, w, w.transpose(1, 2).contiguous())
+    # through the dispatch layer it runs on the local shards
+    before = FA.flash_attention.launches
+    out = ops.flash_attention(q, q, q)
+    assert FA.flash_attention.launches == before + 1
+    assert torch.equal(out.full_tensor(), FA.flash_attention(q.to_local(), q.to_local(),
+                                                             q.to_local()))
+
+
+def test_colocated_server_runs_every_job_on_the_kernels(cuda):
+    """The colocated server on reduced models on the card: every job runs
+    (or is dropped by the server's rule) and each run launches the flash
+    forward once per layer, ``moe_gmm`` once per MoE layer."""
+    from repro_torch.serving import ColocatedServer, ServedModel
+
+    models, layers = {}, {}
+    for name, arch, part in (("perception", "phi4_mini_3p8b", 0),
+                             ("planner", "granite_moe_1b", 0),
+                             ("cockpit", "gemma3_4b", 1)):
+        cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="bfloat16")
+        m = LM(cfg)
+        p = init_params(cfg, device="cuda")
+
+        def fwd(toks, m=m, p=p):
+            with torch.no_grad():
+                x = m.embed(p, {"tokens": toks})
+                x, _ = m.backbone(p, x, positions=torch.arange(x.shape[1], device="cuda"))
+                out = m.logits_last(p, x[:, -1])
+            torch.cuda.synchronize()
+            return out
+
+        variants = {f"b{b}": ((lambda pl, b=b, f=fwd: f(torch.as_tensor(pl[:b], device="cuda"))),
+                              0.001 * b) for b in (1, 4)}
+        models[name] = ServedModel(name=name, variants=variants, partition=part, budget_s=1.0)
+        layers[name] = (cfg.num_layers, cfg.num_layers if cfg.num_experts else 0)
+    server = ColocatedServer(models, num_partitions=2)
+    rng = np.random.RandomState(0)
+    for _ in range(3):
+        toks = rng.randint(0, 100, (4, 16)).astype(np.int32)
+        server.submit("perception", toks, deadline_s=10.0,
+                      done_cb=lambda _o, t=toks: server.submit("planner", t, deadline_s=10.0))
+        server.submit("cockpit", toks, deadline_s=10.0)
+    f0, m0 = FA.flash_attention.launches, MG.moe_gmm.launches
+    log = server.run(duration_s=30.0)
+    assert len(log) == 9 and not any(r["dropped"] for r in log)
+    assert FA.flash_attention.launches - f0 == sum(layers[r["model"]][0] for r in log)
+    assert MG.moe_gmm.launches - m0 == sum(layers[r["model"]][1] for r in log)

@@ -34,6 +34,11 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.training.data, repro_torch.training.checkpoint\n"
         "import repro_torch.training.trainer, repro_torch.launch.train\n"
         "import repro_torch.distribution, repro_torch.distribution.elastic\n"
+        "import repro_torch.distribution.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.dryrun, repro_torch.analysis\n"
+        "import repro_torch.analysis.hlo, repro_torch.analysis.costs\n"
+        "import repro_torch.analysis.buffers, repro_torch.analysis.roofline\n"
+        "import repro_torch.analysis.trace\n"
         "bad = sorted(m for m in sys.modules if m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m] is not None]\n"

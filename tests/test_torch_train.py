@@ -5,7 +5,7 @@ AdamW and int8 compression, the data stream, the straggler monitor,
 checkpoints in both directions (bfloat16 included, ROADMAP C13), ``LM.loss``
 and its gradients on reduced phi4-mini with the reference's own weights,
 ``Trainer.fit`` (plain, accumulated, resumed), every arch accepted for
-training and the mesh still refused, and the launcher.  Inputs are drawn with NumPy from a seed.
+training, ``ElasticMesh``'s grid rule, and the launcher.  Inputs are drawn with NumPy from a seed.
 """
 import dataclasses
 import os
@@ -288,8 +288,20 @@ def test_straggler_monitor_flags_the_same_steps():
     flags = [(ours.observe(i, dt), ref.observe(i, dt)) for i, dt in enumerate(dts)]
     assert all(a == b for a, b in flags)
     assert ours.flagged == ref.flagged and 12 in ours.flagged and 30 in ours.flagged
-    with pytest.raises(NotImplementedError, match="ROADMAP: distribution"):
-        ElasticMesh()
+    # ElasticMesh, ported since: the reference's grid rule on stub devices
+    from repro.distribution.elastic import ElasticMesh as JElasticMesh
+
+    class Dev:
+        def __init__(self, i):
+            self.id = i
+
+    devs = [Dev(i) for i in range(7)]
+    ref = JElasticMesh(model_parallel=2).mesh_for(devs)
+    grid = ElasticMesh(model_parallel=2).grid(devs, 2)
+    assert grid.tolist() == [[d.id for d in row] for row in ref.devices]
+    shrunk = JElasticMesh(2).shrink(ref, [devs[2]])
+    assert ElasticMesh.shrink_grid(grid, [2]).tolist() == \
+        [[d.id for d in row] for row in shrunk.devices]
 
 
 # ---------------------------------------------------------------------------
@@ -330,12 +342,20 @@ def test_lm_loss_and_grads_match_reference(remat, sqrt_remat, layers):
 
 def test_stacks_without_a_backward_refuse_to_train():
     """Written while the MoE, SSM and hybrid stacks had no backward and
-    refused to train (then ROADMAP A7b); their kernels' backwards are
-    ported now, so ``Trainer`` takes every arch's reduced config (its
-    parameters all trainable), while ``Trainer(mesh=...)`` still raises,
-    naming A8 (tests/test_torch_train_stacks.py holds the new stacks'
-    gradients against the reference)."""
+    refused to train (then ROADMAP A7b), and ``Trainer(mesh=...)`` raised
+    (then A8); both are ported now, so ``Trainer`` takes every arch's
+    reduced config (its parameters all trainable), and on a one-rank
+    mesh each stack's parameters are DTensors placed as ``param_specs``
+    says, while a mesh that is no DeviceMesh is refused
+    (tests/test_torch_train_stacks.py holds the new stacks' gradients
+    against the reference, tests/test_torch_dist_train.py the mesh's)."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
     from repro_torch.configs import ARCHS
+    from repro_torch.distribution.sharding import param_specs, to_placements
 
     assert len(ARCHS) == 10
     for arch in ARCHS:
@@ -343,9 +363,23 @@ def test_stacks_without_a_backward_refuse_to_train():
         t = Trainer(cfg, TrainConfig(steps=1), device="cpu")
         leaves = [leaf for _, leaf in _leaves(t.params)]
         assert leaves and all(leaf.requires_grad for leaf in leaves), arch
-    for arch in ("phi4_mini_3p8b", "granite_moe_1b", "mamba2_2p7b", "recurrentgemma_9b"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            Trainer(get_config(arch, reduced=True), TrainConfig(), mesh=object(), device="cpu")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = ElasticMesh(1).mesh_for()
+        for arch in ("phi4_mini_3p8b", "granite_moe_1b", "mamba2_2p7b", "recurrentgemma_9b"):
+            cfg = get_config(arch, reduced=True)
+            with pytest.raises(TypeError, match="DeviceMesh"):
+                Trainer(cfg, TrainConfig(), mesh=object(), device="cpu")
+            t = Trainer(cfg, TrainConfig(), mesh=mesh, device="cpu")
+            specs = dict(_leaves(param_specs(cfg, t.params, fsdp=False)))
+            for name, leaf in _leaves(t.params):
+                assert isinstance(leaf, DTensor) and leaf.requires_grad, name
+                assert tuple(leaf.placements) == to_placements(specs[name], mesh, leaf.shape)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
