@@ -658,9 +658,9 @@ def run_problem(
             f"problem built for R={problem.cfg.R}, got {len(seeds)} seeds"
         )
     with metrics.phase("soa_loop"):
-        out = K.simulate(
-            problem.cfg, problem.const, _lanes(problem, btrace), device=device
-        )
+        with metrics.phase("soa_stage"):
+            lanes = _lanes(problem, btrace)
+        out = K.simulate(problem.cfg, problem.const, lanes, device=device)
     metrics.count("soa_rounds", int(problem.const["t0"].shape[0]))
     # jobs below the final window lower bound had their window close
     # before the horizon end; any still unresolved there froze mid-queue

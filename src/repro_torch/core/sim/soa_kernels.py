@@ -63,6 +63,7 @@ import torch
 
 from ... import _cuda
 from ..._device import resolve_device
+from ...obs import metrics
 
 __all__ = [
     "KernelConfig",
@@ -513,7 +514,9 @@ def edf_alloc_ladder(want, entry, part, cand_rows, cap_p, perm, *, alloc_iters,
     (raising if it cannot build or launch), on a CPU tensor the plain
     version :func:`_edf_alloc_ladder`.  ``edf_alloc_ladder.launches``
     counts the fused kernel's launches, those of :func:`edf_start_keep`
-    included."""
+    included; the ``obs`` counter ``soa_alloc_calls`` counts the calls
+    of both on every device."""
+    metrics.count("soa_alloc_calls")
     if want.is_cuda:
         return _edf_alloc_ladder_cuda(want, entry, part, cand_rows, cap_p, perm,
                                       alloc_iters, bump_passes)
@@ -533,7 +536,9 @@ def edf_start_keep(d, part, avail, perm):
     Shapes as :func:`edf_alloc_ladder`'s ``want``, ``part``, ``cap_p``
     and ``perm``.  On a CUDA tensor one launch of the fused kernel
     (counted by ``edf_alloc_ladder.launches``), on a CPU tensor the
-    plain version :func:`_edf_start_keep`."""
+    plain version :func:`_edf_start_keep`.  Counted by the ``obs``
+    counter ``soa_alloc_calls``."""
+    metrics.count("soa_alloc_calls")
     if d.is_cuda:
         return _edf_start_keep_cuda(d, part, avail, perm)
     if d.device.type != "cpu":
@@ -652,7 +657,16 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
         rbytes = rbytes + moved.sum(dim=1)
         return state, fin, dop, rem, adv, stall_end, nre, rbytes
 
+    # host-side phases of the round, when the registry is on: ``seam``
+    # (on a seam round, from the window views), ``resolve`` (from the
+    # window views through accounting), ``policy``, ``apply`` (through
+    # the write-back); they tile the round with no gap
+    seq = metrics.active_seq()
+    seams = (np.asarray(host["entry"], dtype=bool)
+             & np.asarray(host["swap"], dtype=bool)[host["seg"].astype(np.int64)])
     for r in range(n_rounds):
+        if seq:
+            seq.enter("soa_round.seam" if seams[r] else "soa_round.resolve")
         t0 = float(host["t0"][r])
         t1 = float(host["t1"][r])
         sg = int(host["seg"][r])
@@ -684,11 +698,13 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
         permr = dc["perm"][r]
 
         # ---- seam hot-swap (rare; only at segment-entry rounds) ------
-        if host["entry"][r] and host["swap"][sg]:
+        if seams[r]:
             state, fin, dop, rem, adv, stall_end, nre, rbytes = seam_step(
                 state, fin, dop, rem, adv, pborn, stall_end, nre, rbytes,
                 t0, workw, iow, syncw, ckptw, capsg, hopsg, stagedg,
             )
+            if seq:
+                seq.enter("soa_round.resolve")
         d_cur = dur(workw, iow, syncw, dop)
 
         # ---- finishes ------------------------------------------------
@@ -769,6 +785,8 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
         realloc_r = (alloc_p * ov_p).sum(dim=1)
 
         # ---- policy pass ---------------------------------------------
+        if seq:
+            seq.enter("soa_round.policy")
         stall_rdy = stall_end.index_select(1, parw_ix)
         adm = torch.maximum(ready_t, stall_rdy)
         if pol == _CYC or (pol == _ADS and cfg.admission):
@@ -928,6 +946,8 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
             )
 
         # ---- apply: starts -------------------------------------------
+        if seq:
+            seq.enter("soa_round.apply")
         # a job admitted before this round opened was blocked on
         # capacity; it starts at the in-round release event, not at adm
         d_start = dur(workw, iow, syncw, grant)
@@ -1035,16 +1055,17 @@ def simulate(
     R, N = lanes_np["work"].shape
     if R != cfg.R:
         raise ValueError(f"config for R={cfg.R}, lanes hold {R}")
-    host = {k: np.asarray(const_np[k]) for k in _HOST_KEYS}
-    dc = _upload(const_np, dev)
 
     def lane(k):
         return torch.from_numpy(
             np.ascontiguousarray(lanes_np[k], dtype=np.float32)
         ).to(dev)
 
-    work, io, codes = lane("work"), lane("io"), lane("codes0").clone()
-    with _cuda_loop_guard(dev):
+    with metrics.phase("soa_stage"):
+        host = {k: np.asarray(const_np[k]) for k in _HOST_KEYS}
+        dc = _upload(const_np, dev)
+        work, io, codes = lane("work"), lane("io"), lane("codes0").clone()
+    with _cuda_loop_guard(dev), metrics.phase("soa_issue"), metrics.phase_seq():
         st, codes, stall_end, busy, rel, nre, rbytes, dwork = _run_rounds(
             cfg, host, dc, work, io, codes
         )
@@ -1055,17 +1076,19 @@ def simulate(
     def f8(t):
         return t.cpu().numpy().astype(np.float64)
 
-    return {
-        "state": f4(st[F_STATE]),
-        "ready_t": f4(st[F_READY]),
-        "deg": f4(st[F_DEG]),
-        "start": f4(st[F_START]),
-        "fin": f4(st[F_FIN]),
-        "dop": f4(st[F_DOP]),
-        "codes": f4(codes),
-        "busy": f8(busy),
-        "realloc": f8(rel),
-        "n_realloc": f8(nre),
-        "realloc_bytes": f8(rbytes),
-        "dropped_work": f8(dwork),
-    }
+    # the first copy waits for the card to finish every round
+    with metrics.phase("soa_drain"):
+        return {
+            "state": f4(st[F_STATE]),
+            "ready_t": f4(st[F_READY]),
+            "deg": f4(st[F_DEG]),
+            "start": f4(st[F_START]),
+            "fin": f4(st[F_FIN]),
+            "dop": f4(st[F_DOP]),
+            "codes": f4(codes),
+            "busy": f8(busy),
+            "realloc": f8(rel),
+            "n_realloc": f8(nre),
+            "realloc_bytes": f8(rbytes),
+            "dropped_work": f8(dwork),
+        }
