@@ -33,10 +33,14 @@ Everything is float32; the absolute times in a <=2 s horizon keep
 Differences from the JAX reference's loop, none of which changes what
 it computes:
 
-* the round index, window bounds, segment and seam flags are host
-  NumPy values, so the seam step is a Python ``if`` and every window is
-  plain slicing; the state planes and finish codes are updated in
-  place, one ``(R, W)`` window per round;
+* the round body reads its round from a device counter and per-round
+  tables (window start, segment, times), takes its window by
+  ``index_select`` and writes it back by ``index_copy_``; the state
+  planes, finish codes and accumulators are fixed buffers updated in
+  place.  So on the card the body is captured once as CUDA graphs and
+  replayed every later round (see :func:`_run_rounds`); the CPU runs
+  the same body eagerly.  The seam flags stay host NumPy values: the
+  seam step is a Python ``if``, run eagerly on the host's window;
 * the allocator's convergence-gated ``while_loop``s run a fixed trip
   count (``1 + alloc_iters`` / ``1 + bump_passes``): the refinement
   maps are idempotent once converged, so the result is the same and no
@@ -551,6 +555,18 @@ def edf_start_keep(d, part, avail, perm):
 # ---------------------------------------------------------------------------
 _HOST_KEYS = ("t0", "t1", "seg", "lo", "entry", "swap")
 
+#: columns of the per-round time table ``round_t``: the round's bounds,
+#: then the two thresholds the body compares against, each taken in
+#: float64 on the host and rounded to float32 once, as a float32 op
+#: rounds a Python float operand
+_T0, _T1, _T0_LO, _T1_HI = range(4)
+#: rows of the round's window of the per-job constants (``job_w``), of
+#: the segment's per-job bindings (``seg_w``) and of its per-partition
+#: numbers (``seg_pw``)
+_REL, _E2E, _SYNC, _CKPT = range(4)
+_ERT, _SUB, _TGT, _PDOP, _PART = range(5)
+_CAPS, _HOPS = range(2)
+
 
 def _upload(const_np: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """Every per-cell constant on ``device``, before round 0 (a copy to
@@ -566,16 +582,75 @@ def _upload(const_np: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
-    """Advance every lane through every round; returns the final state
-    planes and accumulators (tensors on ``work``'s device)."""
+def _round_tables(host: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """The per-round tables the body reads at the device's round counter:
+    ``round_lo`` and ``round_seg`` (int64) and ``round_t`` (float32, one
+    row a round: t0, t1, ``t0 - 1e-9``, ``t1 + 1e-12``)."""
+    t0 = np.asarray(host["t0"], dtype=np.float64)
+    t1 = np.asarray(host["t1"], dtype=np.float64)
+    t = np.stack([t0, t1, t0 - 1e-9, t1 + 1e-12], axis=1).astype(np.float32)
+    return {
+        "round_lo": torch.from_numpy(np.asarray(host["lo"], dtype=np.int64)).to(device),
+        "round_seg": torch.from_numpy(np.asarray(host["seg"], dtype=np.int64)).to(device),
+        "round_t": torch.from_numpy(t).to(device),
+    }
+
+
+class _Handoff:
+    """The tensors one step of the round hands to a later step, by name.
+
+    Each keeps one address from round to round, so that a step captured
+    as a CUDA graph finds its inputs where the earlier steps left them:
+    the first round keeps a copy, later rounds copy into it, and while
+    the steps are captured a name takes the graph's own output, which
+    every replay writes in the same place.  On the card only round 0 and
+    the eager launches' outputs reach the copy; the CPU, which replays
+    nothing, copies every round too, so that it runs the very steps the
+    card captures and its tests can hold their addresses fixed."""
+
+    def __init__(self):
+        self.__dict__["capturing"] = False
+
+    def put(self, **tensors):
+        d = self.__dict__
+        for k, t in tensors.items():
+            if d["capturing"]:
+                d[k] = t
+            elif k in d:
+                d[k].copy_(t)
+            else:
+                d[k] = t.clone()
+
+
+@dataclasses.dataclass
+class _Body:
+    """One round of the loop: ``steps`` in order, each ``(span, step,
+    launch)``: the registry phase it opens (or None), a step that reads
+    the round from the device's counter, and the fused allocator's call
+    after it (or None), which takes the round's EDF permutation.  ``seam``
+    is the hot-swap, on the host's window; ``out`` what the loop returns."""
+
+    steps: list
+    seam: object
+    handoff: _Handoff
+    out: tuple
+
+
+def _round_body(cfg: KernelConfig, dc, work, io, codes) -> _Body:
+    """The round loop's state and its round as steps.
+
+    Every step reads the round at the device's round counter (the last
+    step advances it) and its window by ``index_select``, and writes only
+    fixed buffers in place or the handoff: so one capture of the steps
+    replays every later round.  Between steps, the allocator's launches
+    run eagerly on operands of the shapes and strides the kernel has
+    always been given."""
     R, W, P, C, PM = cfg.R, cfg.W, cfg.P, cfg.C, cfg.PM
     tf = cfg.tile_flops
     pol = cfg.policy
     dev = work.device
     N = work.shape[1]
     S_ = int(dc["caps"].shape[0])
-    n_rounds = int(host["t0"].shape[0])
 
     def zeros(shape):
         return torch.zeros(shape, dtype=_F32, device=dev)
@@ -585,7 +660,9 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
 
     fills = {F_FIN: float("inf"), F_SUB: float("inf"), F_TGT: float("inf"),
              F_PART: -1.0, F_REM: 1.0}
-    st = [full((R, N), fills.get(f, 0.0)) for f in range(NFIELDS)]
+    planes = torch.empty((NFIELDS, R, N), dtype=_F32, device=dev)
+    for f in range(NFIELDS):
+        planes[f].fill_(fills.get(f, 0.0))
     stall_end = zeros((R, P))
     busy = zeros((R, S_))
     rel = zeros((R, S_))
@@ -595,17 +672,27 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
 
     ZW = zeros((R, W))
     INFW = full((R, W), float("inf"))
-    ar_p = torch.arange(P, dtype=torch.int64, device=dev)
+    ar_p = torch.arange(P, dtype=_I64, device=dev)
     pos = torch.arange(W, dtype=_F32, device=dev)
     ZP1 = zeros((R, 1))
-    part_ix = dc["part"].to(torch.int64).clamp(0, P - 1)
+    # the round counter, and the constants stacked so that one gather
+    # takes each group's window
+    rnd = torch.zeros((1,), dtype=_I64, device=dev)
+    ar_w = torch.arange(W, dtype=_I64, device=dev)
+    round_lo, round_seg, round_t = dc["round_lo"], dc["round_seg"], dc["round_t"]
+    job_c = torch.stack([dc[k] for k in ("release", "e2e", "sync", "ckpt")])
+    seg_c = torch.stack([dc[k] for k in ("ert", "sub", "tgt", "pdop", "part")]).reshape(5, -1)
+    part_ix = dc["part"].to(_I64).clamp(0, P - 1).reshape(-1)
+    cands = dc["cands"].reshape(-1, C)
+    seg_p = torch.stack([dc["caps"], dc["hops"]])
+    h = _Handoff()
 
     def dur(work, io, sync, c):
         cc = torch.clamp(c, min=1.0)
         return work / (cc * tf) + io + sync * (cc - 1.0)
 
-    def where0(m, v):
-        return torch.where(m, v, ZW)
+    def where0(m, x):
+        return torch.where(m, x, ZW)
 
     def seam_step(state, fin, dop, rem, adv, pborn, stall_end, nre, rbytes,
                   t0, workw, iow, syncw, ckptw, capsg, hopsg, stagedg):
@@ -657,54 +744,39 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
         rbytes = rbytes + moved.sum(dim=1)
         return state, fin, dop, rem, adv, stall_end, nre, rbytes
 
-    # host-side phases of the round, when the registry is on: ``seam``
-    # (on a seam round, from the window views), ``resolve`` (from the
-    # window views through accounting), ``policy``, ``apply`` (through
-    # the write-back); they tile the round with no gap
-    seq = metrics.active_seq()
-    seams = (np.asarray(host["entry"], dtype=bool)
-             & np.asarray(host["swap"], dtype=bool)[host["seg"].astype(np.int64)])
-    for r in range(n_rounds):
-        if seq:
-            seq.enter("soa_round.seam" if seams[r] else "soa_round.resolve")
-        t0 = float(host["t0"][r])
-        t1 = float(host["t1"][r])
-        sg = int(host["seg"][r])
-        lo = int(host["lo"][r])
+    def seam(lo, sg, t0):
+        """The hot-swap on the window by the host's ``lo``, before the
+        round's steps, written back into the planes and accumulators."""
         hi = lo + W
+        win = [planes[f, :, lo:hi] for f in (F_STATE, F_FIN, F_DOP, F_REM, F_ADV)]
+        out = seam_step(
+            *win, planes[F_PART, :, lo:hi], stall_end, nre, rbytes, t0,
+            work[:, lo:hi], io[:, lo:hi], dc["sync"][lo:hi], dc["ckpt"][lo:hi],
+            dc["caps"][sg], dc["hops"][sg], dc["staged"][sg],
+        )
+        for w, new in zip(win, out[:5]):
+            w.copy_(new)
+        for a, new in zip((stall_end, nre, rbytes), out[5:]):
+            a.copy_(new)
 
-        # windows are views; the planes are only written at the end of
-        # the round, after every read of this round's window
+    def resolve():
+        """The round's window, finishes, readiness, deadline drops, finish
+        codes and the accounting of the pre-policy state."""
+        tt = round_t.index_select(0, rnd)[0]
+        t0, t1 = tt[_T0], tt[_T1]
+        sg = round_seg.index_select(0, rnd)
+        idx = round_lo.index_select(0, rnd) + ar_w
+        fidx = sg * N + idx
+        win = planes.index_select(2, idx)
         (state, ready_t, deg, start, fin, dop, pborn, rem, subb, tgtb,
-         adv) = (a[:, lo:hi] for a in st)
-
-        relw = dc["release"][lo:hi]
-        e2ew = dc["e2e"][lo:hi]
-        syncw = dc["sync"][lo:hi]
-        ckptw = dc["ckpt"][lo:hi]
-        predw = dc["preds"][lo:hi]
-        workw = work[:, lo:hi]
-        iow = io[:, lo:hi]
-        ertw = dc["ert"][sg, lo:hi]
-        subw = dc["sub"][sg, lo:hi]
-        tgtw = dc["tgt"][sg, lo:hi]
-        pdw = dc["pdop"][sg, lo:hi]
-        parw = dc["part"][sg, lo:hi]
-        parw_ix = part_ix[sg, lo:hi]
-        candw = dc["cands"][sg, lo:hi]
-        capsg = dc["caps"][sg]
-        hopsg = dc["hops"][sg]
-        stagedg = dc["staged"][sg]
-        permr = dc["perm"][r]
-
-        # ---- seam hot-swap (rare; only at segment-entry rounds) ------
-        if seams[r]:
-            state, fin, dop, rem, adv, stall_end, nre, rbytes = seam_step(
-                state, fin, dop, rem, adv, pborn, stall_end, nre, rbytes,
-                t0, workw, iow, syncw, ckptw, capsg, hopsg, stagedg,
-            )
-            if seq:
-                seq.enter("soa_round.resolve")
+         adv) = win.unbind(0)
+        job_w = job_c.index_select(1, idx)
+        relw, e2ew, syncw, _ckptw = job_w.unbind(0)
+        predw = dc["preds"].index_select(0, idx)
+        workw = work.index_select(1, idx)
+        iow = io.index_select(1, idx)
+        seg_w = seg_c.index_select(1, fidx)
+        _ertw, subw, _tgtw, pdw, parw = seg_w.unbind(0)
         d_cur = dur(workw, iow, syncw, dop)
 
         # ---- finishes ------------------------------------------------
@@ -747,7 +819,7 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
             rem,
         )
         d_plan = dur(workw, iow, syncw, pdw[None, :])
-        dwork = dwork + where0(dropping, rem_d * d_plan * pdw[None, :]).sum(dim=1)
+        dwork.add_(where0(dropping, rem_d * d_plan * pdw[None, :]).sum(dim=1))
         state = torch.where(dropping, DROP, state)
         fin = torch.where(dropping, droptime, fin)
         deg = torch.where(dropping, 1.0, deg)
@@ -756,7 +828,7 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
         # queued through earlier rounds can only start at the event that
         # made room (a completion or drop), never back at its admission
         # time
-        fpart = torch.where(drop_rdy, parw[None, :], pborn).to(torch.int64)
+        fpart = torch.where(drop_rdy, parw[None, :], pborn).to(_I64)
         freeing = done_now | dropping
         freed_t_p = torch.where(
             freeing[..., None] & (fpart[..., None] == ar_p),
@@ -768,11 +840,11 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
         code_w = torch.where(
             terminal, torch.where(deg > 0.5, -fin - 1.0, fin), INFW
         )
-        codes[:, lo:hi] = code_w  # in place: one window per round
+        codes.index_copy_(1, idx, code_w)  # in place: one window per round
 
         # ---- accounting: tile presence of the pre-policy state -------
         run = state == RUN
-        pborn_i = pborn.to(torch.int64)
+        pborn_i = pborn.to(_I64)
         oh_born = pborn_i[..., None] == ar_p
         alloc_p = torch.where(
             run[..., None] & oh_born, dop[..., None], 0.0
@@ -783,176 +855,236 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
         ).sum(dim=1)
         ov_p = (torch.clamp(stall_end, max=t1) - t0).clamp(min=0.0)
         realloc_r = (alloc_p * ov_p).sum(dim=1)
+        h.put(
+            tt=tt, sg=sg, idx=idx, win=win, job_w=job_w, seg_w=seg_w,
+            parw_ix=part_ix.index_select(0, fidx), candw=cands.index_select(0, fidx),
+            seg_pw=seg_p.index_select(1, sg)[:, 0], workw=workw, iow=iow,
+            state=state, ready_t=ready_t, deg=deg, fin=fin, d_cur=d_cur, run=run,
+            pborn_i=pborn_i, freed_t_p=freed_t_p, alloc_p=alloc_p,
+            presence=presence, realloc_r=realloc_r,
+        )
 
-        # ---- policy pass ---------------------------------------------
-        if seq:
-            seq.enter("soa_round.policy")
+    # ---- the window as the later steps read it --------------------------
+    def window(*fields):
+        return [h.win[f] for f in fields]
+
+    def part_row():
+        return h.seg_w[_PART][None, :]
+
+    def cap_pool():
+        return h.seg_pw[_CAPS][None, :].expand(R, P)
+
+    def want_of(rem_f, slack, d_lad):
+        """fit_quota's ladder target with no tile cap (cap folds in at
+        grant time): smallest candidate meeting the deadline, else the
+        largest rung."""
+        candw = h.candw
+        if not cfg.quota_control:
+            return candw[None, :, -1].expand(R, W)
+        meet = rem_f[..., None] * d_lad <= slack[..., None] + 1e-12
+        # argmax over an integer cast returns the first True
+        first = torch.argmax(meet.to(torch.int32), dim=-1)
+        anym = meet.any(dim=-1)
+        picked = torch.gather(
+            candw[None].expand(R, W, C), 2, first[..., None]
+        )[..., 0]
+        return torch.where(anym, picked, candw[None, :, -1])
+
+    def edf_alloc(want_m, entry_m, part_m, cand_rows, pool, perm, bump=False):
+        """EDF-permute, ladder-allocate, inverse-permute: one launch on
+        the card."""
+        return edf_alloc_ladder(
+            want_m, entry_m, part_m, cand_rows, pool, perm,
+            alloc_iters=cfg.alloc_iters,
+            bump_passes=cfg.bump_passes if bump else None,
+        )
+
+    def per_part(m, ids, val=None):
+        """(R, P) per-partition sum (or any) keyed by an id array."""
+        oh = ids.expand(R, W)[..., None] == ar_p
+        if val is None:
+            return (m[..., None] & oh).any(dim=1)
+        v = val.expand(R, W) if torch.is_tensor(val) else torch.full_like(ZW, val)
+        return torch.where(m[..., None] & oh, v[..., None], 0.0).sum(dim=1)
+
+    def own_of(arr_p, idx_i, padval):
+        pad = torch.full((R, 1), padval, dtype=arr_p.dtype, device=dev)
+        return torch.gather(
+            torch.cat([arr_p, pad], dim=1), 1, idx_i.clamp(0, P),
+        )
+
+    # ---- policy pass ------------------------------------------------------
+    def policy_head():
+        """Admission, the ready set and the free tiles, every policy's."""
+        t1 = h.tt[_T1]
+        ertw, parw_ix = h.seg_w[_ERT], h.parw_ix
         stall_rdy = stall_end.index_select(1, parw_ix)
-        adm = torch.maximum(ready_t, stall_rdy)
+        adm = torch.maximum(h.ready_t, stall_rdy)
         if pol == _CYC or (pol == _ADS and cfg.admission):
             adm = torch.maximum(adm, ertw[None, :])
-        can = (state == READY) & (adm <= t1 + 1e-12)
-        own_freed = freed_t_p.index_select(1, parw_ix)
+        can = (h.state == READY) & (adm <= h.tt[_T1_HI])
+        own_freed = h.freed_t_p.index_select(1, parw_ix)
 
-        free_p = capsg[None, :] - alloc_p
+        free_p = h.seg_pw[_CAPS][None, :] - h.alloc_p
         stalled_p = stall_end > t1
 
+        d_lad = None
         if pol in (_TP, _ADS):
+            candw, syncw = h.candw, h.job_w[_SYNC]
             d_lad = (
-                workw[..., None] / (torch.clamp(candw, min=1.0)[None, :, :] * tf)
-                + iow[..., None]
+                h.workw[..., None] / (torch.clamp(candw, min=1.0)[None, :, :] * tf)
+                + h.iow[..., None]
                 + syncw[None, :, None] * torch.clamp(candw - 1.0, min=0.0)[None, :, :]
             )
+        h.put(adm=adm, can=can, own_freed=own_freed)
+        return can, free_p, stalled_p, d_lad
 
-        def want_of(rem_f, slack):
-            """fit_quota's ladder target with no tile cap (cap folds in
-            at grant time): smallest candidate meeting the deadline,
-            else the largest rung."""
-            if not cfg.quota_control:
-                return candw[None, :, -1].expand(R, W)
-            meet = rem_f[..., None] * d_lad <= slack[..., None] + 1e-12
-            # argmax over an integer cast returns the first True
-            first = torch.argmax(meet.to(torch.int32), dim=-1)
-            anym = meet.any(dim=-1)
-            picked = torch.gather(
-                candw[None].expand(R, W, C), 2, first[..., None]
-            )[..., 0]
-            return torch.where(anym, picked, candw[None, :, -1])
+    def cyc_policy():
+        # runners keep their tiles until they finish: ready jobs bid
+        # on *free* capacity only
+        can, free_p, _, _ = policy_head()
+        want = where0(can, h.seg_w[_PDOP][None, :].expand(R, W))
+        h.put(free_p=free_p, want=want)
 
-        def edf_alloc(want_m, entry_m, part_m, cand_rows, pool, bump=False):
-            """EDF-permute, ladder-allocate, inverse-permute: one launch
-            on the card."""
-            return edf_alloc_ladder(
-                want_m, entry_m, part_m, cand_rows, pool, permr,
-                alloc_iters=cfg.alloc_iters,
-                bump_passes=cfg.bump_passes if bump else None,
-            )
+    def cyc_launch(perm):
+        h.put(grant=edf_alloc(h.want, h.can, part_row(), h.seg_w[_PDOP][:, None],
+                              h.free_p, perm))
 
-        def per_part(m, ids, val=None):
-            """(R, P) per-partition sum (or any) keyed by an id array."""
-            oh = ids.expand(R, W)[..., None] == ar_p
-            if val is None:
-                return (m[..., None] & oh).any(dim=1)
-            v = val.expand(R, W) if torch.is_tensor(val) else torch.full_like(ZW, val)
-            return torch.where(m[..., None] & oh, v[..., None], 0.0).sum(dim=1)
+    def tp_policy():
+        # tp re-walks ready+running EDF against the *full* capacity
+        # on every queue change; recomputing the fixed point each
+        # round reproduces the event-driven walk
+        can, _, stalled_p, d_lad = policy_head()
+        t0, t1 = h.tt[_T0], h.tt[_T1]
+        dop, pborn, rem, subb = window(F_DOP, F_PART, F_REM, F_SUB)
+        run = h.run
+        slack_rdy = h.seg_w[_SUB][None, :] - torch.clamp(h.adm, min=t0)
+        want_rdy = where0(can, want_of(rem, slack_rdy, d_lad))
+        rem_run = ((h.fin - t1) / torch.clamp(h.d_cur, min=1e-12)).clamp(0.0, 1.0)
+        want_run_q = want_of(rem_run, subb - t1, d_lad)
+        own_stalled = own_of(stalled_p, h.pborn_i, True)
+        want_run = torch.where(own_stalled, dop, want_run_q)
+        want = torch.where(run, want_run, want_rdy)
+        h.put(want=want, entry=can | run, part=torch.where(run, pborn, part_row()))
 
-        def own_of(arr_p, idx_i, padval):
-            pad = torch.full((R, 1), padval, dtype=arr_p.dtype, device=dev)
-            return torch.gather(
-                torch.cat([arr_p, pad], dim=1), 1, idx_i.clamp(0, P),
-            )
+    def tp_launch(perm):
+        h.put(grant=edf_alloc(h.want, h.entry, h.part, h.candw, cap_pool(), perm,
+                              bump=True))
 
-        cap_pool = capsg[None, :].expand(R, P)
-        if pol in (_CYC, _CYC_S):
-            # runners keep their tiles until they finish: ready jobs bid
-            # on *free* capacity only
-            want = where0(can, pdw[None, :].expand(R, W))
-            grant = edf_alloc(want, can, parw[None, :], pdw[:, None], free_p)
-            started = can & (grant > 0.5)
-        elif pol == _TP:
-            # tp re-walks ready+running EDF against the *full* capacity
-            # on every queue change; recomputing the fixed point each
-            # round reproduces the event-driven walk
-            slack_rdy = subw[None, :] - torch.clamp(adm, min=t0)
-            want_rdy = where0(can, want_of(rem, slack_rdy))
-            rem_run = ((fin - t1) / torch.clamp(d_cur, min=1e-12)).clamp(0.0, 1.0)
-            want_run_q = want_of(rem_run, subb - t1)
-            own_stalled = own_of(stalled_p, pborn_i, True)
-            want_run = torch.where(own_stalled, dop, want_run_q)
-            want = torch.where(run, want_run, want_rdy)
-            grant = edf_alloc(
-                want, can | run, torch.where(run, pborn, parw[None, :]),
-                candw, cap_pool, bump=True,
-            )
-            started = can & (grant > 0.5)
-        else:
-            # ---- ads Algorithm 2, mirrored in two phases --------------
-            # Phase A (fast path): ready jobs start on *free* tiles at
-            # their quota while running jobs hold their allocation
-            cmaxw = candw[:, -1]
-            slack_rdy = tgtw[None, :] - torch.clamp(adm, min=t0)
-            want_rdy = where0(can, want_of(rem, slack_rdy))
-            partA = parw[None, :].expand(R, W)
-            grantA = edf_alloc(want_rdy, can, partA, candw, free_p)
-            started1 = can & (grantA > 0.5)
+    # ---- ads Algorithm 2, mirrored in two phases ------------------------
+    def ads_part_a():
+        return part_row().expand(R, W)
 
-            # ChkTrigger on the post-fast-path state; the running set is
-            # the pre-start snapshot, as in the scalar policy.
-            alloc2 = alloc_p + per_part(started1, parw_ix[None, :], grantA)
-            free2 = cap_pool - alloc2
-            still = can & ~started1
-            own_free2 = free2.index_select(1, parw_ix)
-            blocked = still & (want_rdy > own_free2 + 0.5)
-            # progress is synced only at chunk boundaries and realloc
-            # freezes: the projection runs on progress stale since the
-            # last chunk boundary before t1 (``adv`` anchors the grid)
-            chunk_iv = torch.clamp(d_cur, min=1e-12) / float(cfg.n_chunks)
-            stale_amt = where0(
-                run, torch.remainder((t1 - adv).clamp(min=0.0), chunk_iv)
-            )
-            rem_stale = (
-                ((fin - t1) + stale_amt) / torch.clamp(d_cur, min=1e-12)
-            ).clamp(0.0, 1.0)
-            at_risk = run & (cmaxw[None, :] > dop + 0.5) & (
-                t1 + rem_stale * d_cur > tgtb
-            )
-            blocked_p = per_part(blocked, parw_ix[None, :])
-            risk_p = per_part(at_risk, pborn_i)
-            trig_p = (blocked_p | risk_p) & ~stalled_p
-            own_trig_run = own_of(trig_p, pborn_i, False)
-            own_trig_rdy = trig_p.index_select(1, parw_ix)
+    def ads_policy():
+        # Phase A (fast path): ready jobs start on *free* tiles at their
+        # quota while running jobs hold their allocation
+        can, free_p, stalled_p, d_lad = policy_head()
+        slack_rdy = h.seg_w[_TGT][None, :] - torch.clamp(h.adm, min=h.tt[_T0])
+        want_rdy = where0(can, want_of(h.win[F_REM], slack_rdy, d_lad))
+        h.put(free_p=free_p, stalled_p=stalled_p, d_lad=d_lad, want_rdy=want_rdy)
 
-            # Phase B (quota control): triggered partitions re-bid
-            # running + still-ready jobs EDF against the full capacity
-            want_run_q = want_of(rem_stale, tgtb - t1)
-            entryB = (run & own_trig_run) | (still & own_trig_rdy)
-            wantB = torch.where(run, torch.clamp(want_run_q, min=1.0), want_rdy)
-            grantB = edf_alloc(
-                wantB, entryB, torch.where(run, pborn, partA), candw, cap_pool
-            )
+    def ads_launch_a(perm):
+        h.put(grantA=edf_alloc(h.want_rdy, h.can, ads_part_a(), h.candw, h.free_p, perm))
 
-            # benefit/cost gates: grow only when the saved time beats the
-            # whole-partition stall it causes; shrink only to admit a
-            # blocked job; never preempt a runner to zero.
-            d_new = dur(workw, iow, syncw, grantB)
-            n_run_p = per_part(run, pborn_i, 1.0)
-            own_nrun = own_of(n_run_p, pborn_i, 1.0)
-            own_hops = hopsg[pborn_i.clamp(0, P - 1)]
-            stall_c = (
-                cfg.fixed_s + cfg.decision_s + own_hops * cfg.per_hop_s
-                + ckptw[None, :] * torch.abs(grantB - dop) * cfg.inv_bw
-            )
-            benefit = rem_stale * (d_cur - d_new)
-            grow_ok = benefit > stall_c * torch.clamp(own_nrun, min=1.0) * cfg.realloc_gate
-            blocked_own = own_of(blocked_p, pborn_i, False)
-            g = grantB
-            g = torch.where(g > dop, torch.where(grow_ok, g, dop), g)
-            g = torch.where((g < dop) & ~blocked_own, dop, g)
-            g = torch.where(g < 0.5, dop, g)
-            g = torch.where(run & own_trig_run, g, dop)
+    def ads_bid():
+        # ChkTrigger on the post-fast-path state; the running set is
+        # the pre-start snapshot, as in the scalar policy.
+        t1 = h.tt[_T1]
+        dop, pborn, tgtb, adv = window(F_DOP, F_PART, F_TGT, F_ADV)
+        can, run, pborn_i, parw_ix = h.can, h.run, h.pborn_i, h.parw_ix
+        fin, d_cur, want_rdy, grantA = h.fin, h.d_cur, h.want_rdy, h.grantA
+        cmaxw = h.candw[:, -1]
+        started1 = can & (grantA > 0.5)
+        alloc2 = h.alloc_p + per_part(started1, parw_ix[None, :], grantA)
+        free2 = cap_pool() - alloc2
+        still = can & ~started1
+        own_free2 = free2.index_select(1, parw_ix)
+        blocked = still & (want_rdy > own_free2 + 0.5)
+        # progress is synced only at chunk boundaries and realloc
+        # freezes: the projection runs on progress stale since the
+        # last chunk boundary before t1 (``adv`` anchors the grid)
+        chunk_iv = torch.clamp(d_cur, min=1e-12) / float(cfg.n_chunks)
+        stale_amt = where0(
+            run, torch.remainder((t1 - adv).clamp(min=0.0), chunk_iv)
+        )
+        rem_stale = (
+            ((fin - t1) + stale_amt) / torch.clamp(d_cur, min=1e-12)
+        ).clamp(0.0, 1.0)
+        at_risk = run & (cmaxw[None, :] > dop + 0.5) & (
+            t1 + rem_stale * d_cur > tgtb
+        )
+        blocked_p = per_part(blocked, parw_ix[None, :])
+        risk_p = per_part(at_risk, pborn_i)
+        trig_p = (blocked_p | risk_p) & ~h.stalled_p
+        own_trig_run = own_of(trig_p, pborn_i, False)
+        own_trig_rdy = trig_p.index_select(1, parw_ix)
 
-            # Phase B starts: validate against free + net freed tiles,
-            # EDF order, dropping what no longer fits
-            mB = run & own_trig_run
-            freed_p = per_part(mB, pborn_i, torch.clamp(dop - g, min=0.0))
-            grown_p = per_part(mB, pborn_i, torch.clamp(g - dop, min=0.0))
-            availB = free2 + freed_p - grown_p
-            dB = where0(still & own_trig_rdy, grantB)
-            started2 = edf_start_keep(dB, partA, availB, permr)
-            started = started1 | started2
-            grant = torch.where(
-                run, g,
-                torch.where(started1, grantA, where0(started2, grantB)),
-            )
+        # Phase B (quota control): triggered partitions re-bid
+        # running + still-ready jobs EDF against the full capacity
+        want_run_q = want_of(rem_stale, tgtb - t1, h.d_lad)
+        entryB = (run & own_trig_run) | (still & own_trig_rdy)
+        wantB = torch.where(run, torch.clamp(want_run_q, min=1.0), want_rdy)
+        h.put(started1=started1, free2=free2, still=still, rem_stale=rem_stale,
+              blocked_p=blocked_p, own_trig_run=own_trig_run,
+              own_trig_rdy=own_trig_rdy, wantB=wantB, entryB=entryB,
+              partB=torch.where(run, pborn, ads_part_a()))
 
-        # ---- apply: starts -------------------------------------------
-        if seq:
-            seq.enter("soa_round.apply")
+    def ads_launch_b(perm):
+        h.put(grantB=edf_alloc(h.wantB, h.entryB, h.partB, h.candw, cap_pool(), perm))
+
+    def ads_gates():
+        # benefit/cost gates: grow only when the saved time beats the
+        # whole-partition stall it causes; shrink only to admit a
+        # blocked job; never preempt a runner to zero.
+        dop = h.win[F_DOP]
+        run, pborn_i, grantB = h.run, h.pborn_i, h.grantB
+        d_cur, own_trig_run = h.d_cur, h.own_trig_run
+        d_new = dur(h.workw, h.iow, h.job_w[_SYNC], grantB)
+        n_run_p = per_part(run, pborn_i, 1.0)
+        own_nrun = own_of(n_run_p, pborn_i, 1.0)
+        own_hops = h.seg_pw[_HOPS][pborn_i.clamp(0, P - 1)]
+        stall_c = (
+            cfg.fixed_s + cfg.decision_s + own_hops * cfg.per_hop_s
+            + h.job_w[_CKPT][None, :] * torch.abs(grantB - dop) * cfg.inv_bw
+        )
+        benefit = h.rem_stale * (d_cur - d_new)
+        grow_ok = benefit > stall_c * torch.clamp(own_nrun, min=1.0) * cfg.realloc_gate
+        blocked_own = own_of(h.blocked_p, pborn_i, False)
+        g = grantB
+        g = torch.where(g > dop, torch.where(grow_ok, g, dop), g)
+        g = torch.where((g < dop) & ~blocked_own, dop, g)
+        g = torch.where(g < 0.5, dop, g)
+        g = torch.where(run & own_trig_run, g, dop)
+
+        # Phase B starts: validate against free + net freed tiles,
+        # EDF order, dropping what no longer fits
+        mB = run & own_trig_run
+        freed_p = per_part(mB, pborn_i, torch.clamp(dop - g, min=0.0))
+        grown_p = per_part(mB, pborn_i, torch.clamp(g - dop, min=0.0))
+        availB = h.free2 + freed_p - grown_p
+        dB = where0(h.still & h.own_trig_rdy, grantB)
+        h.put(g=g, availB=availB, dB=dB)
+
+    def ads_launch_keep(perm):
+        h.put(started2=edf_start_keep(h.dB, ads_part_a(), h.availB, perm))
+
+    # ---- apply ------------------------------------------------------------
+    def apply(started, grant):
+        """Starts, resizes and preempts, the tile-second buckets and the
+        window's write-back; then the round counter moves on."""
+        t0, t1 = h.tt[_T0], h.tt[_T1]
+        state, fin = h.state, h.fin
+        start, dop, pborn, rem, subb, tgtb, adv = window(
+            F_START, F_DOP, F_PART, F_REM, F_SUB, F_TGT, F_ADV)
+        run = h.run
+        workw, iow, syncw, ckptw = h.workw, h.iow, h.job_w[_SYNC], h.job_w[_CKPT]
+        _ertw, subw, tgtw, _pdw, parw = h.seg_w.unbind(0)
+        hopsg = h.seg_pw[_HOPS]
         # a job admitted before this round opened was blocked on
         # capacity; it starts at the in-round release event, not at adm
         d_start = dur(workw, iow, syncw, grant)
         start_t = torch.where(
-            adm >= t0 - 1e-9, adm, torch.clamp(own_freed, min=t0, max=t1),
+            h.adm >= h.tt[_T0_LO], h.adm, torch.clamp(h.own_freed, min=t0, max=t1),
         )
         state = torch.where(started, RUN, state)
         start = torch.where(started, start_t, start)
@@ -972,7 +1104,7 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
                 resized,
                 ckptw[None, :] * torch.where(preempt, dop, torch.abs(grant - dop)),
             )
-            ohres = pborn.to(torch.int64)[..., None] == ar_p
+            ohres = pborn.to(_I64)[..., None] == ar_p
             moved_p = torch.where(ohres, moved_j[..., None], 0.0).sum(dim=1)
             changed_p = (resized[..., None] & ohres).any(dim=1)
             stall_p = torch.where(
@@ -981,8 +1113,8 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
                 + moved_p * cfg.inv_bw,
                 0.0,
             )
-            stall_end = torch.maximum(stall_end, t1 + stall_p)
-            rem_now = ((fin - t1) / torch.clamp(d_cur, min=1e-12)).clamp(0.0, 1.0)
+            stall_end.copy_(torch.maximum(stall_end, t1 + stall_p))
+            rem_now = ((fin - t1) / torch.clamp(h.d_cur, min=1e-12)).clamp(0.0, 1.0)
             d_res = dur(workw, iow, syncw, grant)
             keep = resized & ~preempt
             fin = torch.where(keep, t1 + rem_now * d_res, fin)
@@ -994,15 +1126,15 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
             # whole-partition freeze: survivors wait out the stall
             stall_own = torch.gather(
                 torch.cat([stall_p, ZP1], dim=1), 1,
-                pborn.to(torch.int64).clamp(0, P),
+                pborn.to(_I64).clamp(0, P),
             )
             frozen = (state == RUN) & ~started & (stall_own > 0)
             fin = torch.where(frozen, fin + stall_own, fin)
             # the freeze is where the scalar engine syncs progress: the
             # staleness clock restarts at the stall's end
             adv = torch.where(frozen | keep, t1 + stall_own, adv)
-            nre = nre + changed_p.to(_F32).sum(dim=1)
-            rbytes = rbytes + moved_p.sum(dim=1)
+            nre.add_(changed_p.to(_F32).sum(dim=1))
+            rbytes.add_(moved_p.sum(dim=1))
 
         dop = torch.where(started, grant, dop)
         adv = torch.where(started, start_t, adv)
@@ -1011,16 +1143,120 @@ def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
         start_corr = where0(
             started, grant * (t1 - start_t).clamp(min=0.0)
         ).sum(dim=1)
-        busy_r = (presence + start_corr - realloc_r).clamp(min=0.0)
-        busy[:, sg] += busy_r
-        rel[:, sg] += realloc_r
+        busy_r = (h.presence + start_corr - h.realloc_r).clamp(min=0.0)
+        busy.index_add_(1, h.sg, busy_r[:, None])
+        rel.index_add_(1, h.sg, h.realloc_r[:, None])
 
         # ---- write the window back (in place) ------------------------
-        new_w = (state, ready_t, deg, start, fin, dop, pborn, rem, subb,
+        new_w = (state, h.ready_t, h.deg, start, fin, dop, pborn, rem, subb,
                  tgtb, adv)
-        for a, w in zip(st, new_w):
-            a[:, lo:hi] = w
-    return st, codes, stall_end, busy, rel, nre, rbytes, dwork
+        planes.index_copy_(2, h.idx, torch.stack(new_w))
+        rnd.add_(1)
+
+    def apply_granted():
+        apply(h.can & (h.grant > 0.5), h.grant)
+
+    def ads_apply():
+        started1, started2 = h.started1, h.started2
+        started = started1 | started2
+        grant = torch.where(
+            h.run, h.g,
+            torch.where(started1, h.grantA, where0(started2, h.grantB)),
+        )
+        apply(started, grant)
+
+    # the steps tile the round: ``soa_round.resolve`` (its span opened by
+    # the loop), ``.policy`` through the last launch, ``.apply``
+    if pol == _ADS:
+        steps = [(None, resolve, None),
+                 ("soa_round.policy", ads_policy, ads_launch_a),
+                 (None, ads_bid, ads_launch_b),
+                 (None, ads_gates, ads_launch_keep),
+                 ("soa_round.apply", ads_apply, None)]
+    else:
+        policy, launch = (tp_policy, tp_launch) if pol == _TP else (cyc_policy, cyc_launch)
+        steps = [(None, resolve, None),
+                 ("soa_round.policy", policy, launch),
+                 ("soa_round.apply", apply_granted, None)]
+    return _Body(steps=steps, seam=seam, handoff=h,
+                 out=(planes, codes, stall_end, busy, rel, nre, rbytes, dwork))
+
+
+def _capture(body: _Body, dev: torch.device, pool) -> list:
+    """One CUDA graph per step of the round, captured on a side stream
+    into ``pool`` (nothing runs; the handoff takes the graphs'
+    outputs)."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.Stream()
+    graphs = []
+    body.handoff.capturing = True
+    try:
+        with torch.cuda.stream(stream):
+            for _span, step, _launch in body.steps:
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(pool=pool.id)
+                step()
+                g.capture_end()
+                graphs.append(g)
+    finally:
+        body.handoff.capturing = False
+    return graphs
+
+
+def _run_rounds(cfg: KernelConfig, host, dc, work, io, codes):
+    """Advance every lane through every round; returns the final state
+    planes and accumulators (tensors on ``work``'s device).
+
+    On the CPU every round runs the steps of :func:`_round_body` eagerly.
+    On the card (where ``dc["graph_pool"]`` holds the memory pool that
+    :func:`simulate` made for the loop) round 0 does too; then each step
+    is captured as a CUDA graph into that pool and every later round
+    replays them, the allocator's launches issued eagerly between the
+    replays.  The graphs are released when the loop returns, the pool by
+    :func:`simulate` once the card is idle."""
+    n_rounds = int(host["t0"].shape[0])
+    body = _round_body(cfg, dc, work, io, codes)
+    pool = dc.get("graph_pool")
+    graphs = None
+
+    # host-side phases of the round, when the registry is on: ``seam``
+    # (on a seam round, the hot-swap), ``resolve``, ``policy`` (through
+    # the last allocator launch), ``apply``; they tile the round with no
+    # gap.  The capture, after round 0, is phase ``soa_capture``.
+    seq = metrics.active_seq()
+    seams = (np.asarray(host["entry"], dtype=bool)
+             & np.asarray(host["swap"], dtype=bool)[host["seg"].astype(np.int64)])
+    try:
+        for r in range(n_rounds):
+            if seq:
+                seq.enter("soa_round.seam" if seams[r] else "soa_round.resolve")
+            # ---- seam hot-swap (rare; only at segment-entry rounds) --
+            if seams[r]:
+                body.seam(int(host["lo"][r]), int(host["seg"][r]), float(host["t0"][r]))
+                if seq:
+                    seq.enter("soa_round.resolve")
+            perm = dc["perm"][r]
+            for i, (span, step, launch) in enumerate(body.steps):
+                if span and seq:
+                    seq.enter(span)
+                if graphs is None:
+                    step()
+                else:
+                    graphs[i].replay()
+                if launch is not None:
+                    launch(perm)
+            if graphs is not None:
+                metrics.count("soa_graph_rounds")
+            elif pool is not None and r + 1 < n_rounds:
+                if seq:
+                    seq.close()
+                with metrics.phase("soa_capture"):
+                    graphs = _capture(body, work.device, pool)
+                metrics.count("soa_graph_captures")
+    finally:
+        for g in graphs or ():
+            g.reset()
+    return body.out
 
 
 @contextlib.contextmanager
@@ -1064,6 +1300,10 @@ def simulate(
     with metrics.phase("soa_stage"):
         host = {k: np.asarray(const_np[k]) for k in _HOST_KEYS}
         dc = _upload(const_np, dev)
+        dc.update(_round_tables(host, dev))
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                dc["graph_pool"] = torch.cuda.MemPool()
         work, io, codes = lane("work"), lane("io"), lane("codes0").clone()
     with _cuda_loop_guard(dev), metrics.phase("soa_issue"), metrics.phase_seq():
         st, codes, stall_end, busy, rel, nre, rbytes, dwork = _run_rounds(
@@ -1076,9 +1316,10 @@ def simulate(
     def f8(t):
         return t.cpu().numpy().astype(np.float64)
 
-    # the first copy waits for the card to finish every round
+    # the first copy waits for the card to finish every round; then the
+    # loop's graph pool goes back to the device, the card idle
     with metrics.phase("soa_drain"):
-        return {
+        out = {
             "state": f4(st[F_STATE]),
             "ready_t": f4(st[F_READY]),
             "deg": f4(st[F_DEG]),
@@ -1092,3 +1333,5 @@ def simulate(
             "realloc_bytes": f8(rbytes),
             "dropped_work": f8(dwork),
         }
+        dc.pop("graph_pool", None)
+    return out

@@ -15,6 +15,7 @@ without the reference's dependencies:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_gpu.py
 """
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -258,6 +259,74 @@ def test_soa_sweep_on_cuda_matches_lockstep(cuda):
     assert ident["soa"] == ident["lockstep"] and len(ident["soa"]) == 4
     for a, b in zip(reports["lockstep"], reports["soa"]):
         assert soa.structural_invariants(a) == soa.structural_invariants(b)
+
+
+def _soa_fans(spec, seed_sets):
+    """``run`` of each seed set on the SoA backend with the registry on;
+    the reports, the registry's snapshot and the allocated bytes after
+    each fan."""
+    from repro_torch.obs import metrics
+
+    metrics.enable()
+    metrics.reset()
+    reports, after = [], []
+    try:
+        for seeds in seed_sets:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                reports.append(run(spec, seeds=seeds, backend="soa", fallback=False))
+            torch.cuda.synchronize()
+            after.append(torch.cuda.memory_allocated())
+        snap = metrics.snapshot()
+    finally:
+        metrics.reset()
+        metrics.enable(False)
+    return reports, snap, after
+
+
+def test_soa_loop_replays_every_round_but_the_first_as_graphs(cuda):
+    """Each loop runs round 0 eagerly and captures once; every other round
+    is replayed, and the fused allocator is still launched eagerly once
+    per allocation."""
+    spec = ScenarioSpec(scenario=get_scenario("commute"), policy="ads_tile",
+                        cockpit_replicas=4, duration_s=0.5)
+    before = K.edf_alloc_ladder.launches
+    _, snap, _ = _soa_fans(spec, [list(range(64))])
+    cnt, ph = snap["counters"], snap["phases"]
+    loops = ph["soa_issue"]["n"]
+    assert cnt["soa_graph_captures"] == loops == ph["soa_capture"]["n"]
+    assert cnt["soa_graph_rounds"] == cnt["soa_rounds"] - loops
+    assert K.edf_alloc_ladder.launches - before == cnt["soa_alloc_calls"] == 3 * cnt["soa_rounds"]
+
+
+def test_soa_fans_leave_allocated_memory_where_the_first_left_it(cuda):
+    """Three fans in one process: the graphs and what they hold are
+    released with each loop."""
+    spec = ScenarioSpec(scenario=get_scenario("commute"), policy="ads_tile",
+                        cockpit_replicas=4, duration_s=0.5)
+    _, snap, after = _soa_fans(spec, [list(range(k * 256, (k + 1) * 256)) for k in range(3)])
+    assert snap["counters"]["soa_graph_captures"] >= 3
+    assert after[1] == after[0] and after[2] == after[0], after
+
+
+@pytest.mark.parametrize("policy", ["ads_tile", "tp_driven", "cyc"])
+def test_soa_graphs_keep_the_scalar_engine_s_structure_across_a_seam(cuda, policy):
+    """The two-mode script of the registry's CPU tests (one hot-swap seam,
+    taken eagerly between replays) on the card: each lane's structural
+    invariants are the scalar engine's."""
+    from repro_torch.scenarios import ScenarioScript
+    from repro_torch.scenarios.script import ModeSegment
+
+    script = ScenarioScript(name="obs-seam", segments=(
+        ModeSegment(mode="urban", duration_s=0.05), ModeSegment(mode="highway", duration_s=0.05)))
+    spec = ScenarioSpec(scenario=script, policy=policy, cockpit_replicas=4)
+    seeds = [3, 1 << 31]
+    [got], snap, _ = _soa_fans(spec, [seeds])
+    assert snap["phases"]["soa_round.seam"]["n"] >= 1
+    assert snap["counters"]["soa_graph_rounds"] > 0
+    for s, r in zip(seeds, got):
+        [ref] = run(dataclasses.replace(spec, seed=s), backend="scalar")
+        assert soa.structural_invariants(ref) == soa.structural_invariants(r)
 
 
 #: kernel vs plain version: tests/test_kernels.py's tolerances
