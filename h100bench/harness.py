@@ -110,7 +110,20 @@ def cell_metrics(bench: Dict, cell: str, kind: str) -> List[Dict]:
     """The ``end_to_end`` or ``per_layer`` metrics this cell reports: those
     that list it under ``workloads``; a metric without the key goes to
     every cell that reports the end-to-end metric it moves (an
-    end-to-end metric without it, to every cell)."""
+    end-to-end metric without it, to every cell).
+
+    The rule by which cells come in:
+
+    * an end-to-end metric without ``workloads`` belongs to every cell;
+    * a new cell reports the end-to-end metrics the benchmark has, and
+      comes in by new files and new entries alone: ``configs/<name>.json``,
+      its ``configs`` entry, a ``workloads`` entry, and per-layer metrics
+      of its own whose ``workloads`` name it;
+    * every per-layer metric carries a ``workloads`` list;
+    * a later cell that cannot report a list-free end-to-end metric gives
+      that metric the list of the accepted cells that report it, in the
+      change that adds the cell.
+    """
     e2e = bench["end_to_end"]
     mine_e2e = {m["name"] for m in e2e if cell in m.get("workloads", [cell])}
     out = []
