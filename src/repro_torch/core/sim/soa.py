@@ -122,11 +122,22 @@ def _drop_mode(policy_name: str, drop_policy: str) -> int:
 class SoaOptions:
     """Tuning knobs of the discrete-round approximation.
 
-    ``dt_s`` is the scheduling-round cadence: smaller tracks the scalar
-    engine's event cadence more closely (the bundled workloads see
-    ~one scheduling event per partition per 2-4 ms), larger is faster.
-    Event *times* are exact regardless (backdated); dt only quantizes
-    when decisions are taken.
+    ``dt_s`` is the scheduling grid: smaller tracks the scalar engine's
+    event cadence more closely, larger is faster.  Event *times* are
+    exact regardless (backdated); dt only quantizes when decisions are
+    taken.  Under ads_tile the problem may split each grid step into
+    sub-rounds (:func:`_subrounds_for`): ads_tile re-runs its quota
+    control at every scheduling point of a partition, and a partition
+    holding many co-located task streams sees several a millisecond.
+    The pooled chain latencies' KS distance to the engine over commute's
+    2.0 s drive, 8 lanes on the CPU (two seed sets), one 1 ms round a
+    step / two: cockpit x4 (6.5 task streams a partition) 0.014 / 0.017-
+    0.019; x5 (7.5) 0.011-0.017 / 0.010-0.011; x6 (8.5) 0.025-0.040 /
+    0.013-0.019; x7 (9.5) 0.054-0.062 / 0.027-0.036; x8 (10.5) 0.062-
+    0.065 / 0.038-0.041.  On an H100 (96 lanes a seed) one round reads
+    0.012-0.013 at x4 and 0.081-0.093 at x9 (11.5), over the contract's
+    0.08, where the engine takes a realloc cascade's steps one stall
+    apart; two rounds read 0.043-0.054 there.
     """
 
     dt_s: float = 1e-3
@@ -141,7 +152,10 @@ class SoaOptions:
     life_pad_s: float = 0.0
     #: EDF fixed-point refinement steps; None resolves per policy —
     #: tp_driven's event walk needs the exact sequential fixed point
-    #: (8), cyc/ads converge by 3 (measured KS-identical vs 8)
+    #: (8), cyc/ads converge by 3 (measured KS-identical vs 8 at cockpit
+    #: x4; at cockpit x9, where a partition's queue is twice as long, 8
+    #: and 16 steps also read the lat_ks of 3 against the scalar engine,
+    #: 0.0954 against 0.0951 on 8 lanes of a 0.5 s commute)
     alloc_iters: Optional[int] = None
     bump_passes: int = 8        # tp work-conserving refinement steps
 
@@ -225,6 +239,26 @@ def _candidate_table(wf, sched, policy_name) -> Dict[str, Tuple[int, ...]]:
         else:
             out[name] = t.dop_candidates()
     return out
+
+
+#: co-located DNN task streams a partition may hold for one ads_tile
+#: round per ``dt_s`` step, from the bias measured at every cockpit count
+#: from x4 to x9 (SoaOptions' docstring): up to cockpit x5's 7.5 one 1 ms
+#: round holds the engine as closely as at x4; from x6's 8.5 one round
+#: drifts away, and a second halves the distance
+_STREAMS_PER_ROUND = 8.0
+
+
+def _subrounds_for(policy_name: str, n_dnn_tasks: int, n_partitions: int) -> int:
+    """Rounds per ``dt_s`` step of a problem: one, except under ads_tile
+    when its partitions hold more than :data:`_STREAMS_PER_ROUND` DNN
+    task streams each on average (every stream's releases, chunk
+    boundaries and finishes are the policy's scheduling points): then
+    enough that no round serves more than that many."""
+    if policy_name != "ads_tile":
+        return 1
+    streams = n_dnn_tasks / max(int(n_partitions), 1)
+    return max(1, int(math.ceil(streams / _STREAMS_PER_ROUND - 1e-9)))
 
 
 def _segments(scenario, duration, schedule0, portfolio, replan):
@@ -341,9 +375,12 @@ def build_problem(
 
     # ---- round grid ---------------------------------------------------
     dt = float(opt.dt_s)
+    sub_k = _subrounds_for(
+        policy_name, sum(1 for t in wf.tasks.values() if not t.is_sensor), P
+    )
     t0s, t1s, seg_ix, entry = [], [], [], []
     for s, (a, b, _m, _tbl, _sw) in enumerate(segs):
-        n = max(1, int(math.ceil((b - a) / dt - 1e-9)))
+        n = max(1, int(math.ceil((b - a) / dt - 1e-9))) * sub_k
         edges = a + (b - a) * np.arange(n + 1) / n
         for k in range(n):
             t0s.append(edges[k])
@@ -524,6 +561,7 @@ def build_problem(
             else (8 if policy_name == "tp_driven" else 3)
         ),
         bump_passes=int(opt.bump_passes),
+        subrounds=sub_k,
     )
 
     # ---- report-assembly side data ------------------------------------
@@ -661,7 +699,15 @@ def run_problem(
         with metrics.phase("soa_stage"):
             lanes = _lanes(problem, btrace)
         out = K.simulate(problem.cfg, problem.const, lanes, device=device)
-    metrics.count("soa_rounds", int(problem.const["t0"].shape[0]))
+    n_rounds = int(problem.const["t0"].shape[0])
+    metrics.count("soa_rounds", n_rounds)
+    if metrics.enabled():
+        metrics.count("soa_reallocs", int(round(float(out["n_realloc"].sum()))))
+        if "n_realloc_sub" in out:
+            metrics.count("soa_subround_reallocs",
+                          int(round(float(out["n_realloc_sub"].sum()))))
+        metrics.count("soa_window_live", _window_live(problem, out))
+        metrics.count("soa_window_cols", n_rounds * problem.cfg.W * problem.cfg.R)
     # jobs below the final window lower bound had their window close
     # before the horizon end; any still unresolved there froze mid-queue
     # (overload past the lifetime bound) and the lane's report would
@@ -684,6 +730,32 @@ def run_problem(
             )
     with metrics.phase("soa_reports"):
         return _assemble_reports(problem, out)
+
+
+def _window_live(problem: SoaProblem, out: Dict[str, np.ndarray]) -> int:
+    """Lane-columns of the rounds' job windows that held a released,
+    unresolved job, summed over rounds, from the loop's final planes and
+    the loop's own float32 comparisons: a job counts from the first
+    round whose ``t1`` reaches its release (``release <= t1``) to the
+    last before the first that reaches its final ``fin`` (``fin <= t1``;
+    never, if unresolved), while ``lo <= j < lo + W``.  A job that starts
+    and finishes inside one round counts from that round as resolved,
+    one round early."""
+    t1 = np.asarray(problem.const["t1"], dtype=np.float32)
+    lo = np.asarray(problem.const["lo"], dtype=np.int64)
+    state, fin = out["state"], np.asarray(out["fin"], dtype=np.float32)
+    j = np.arange(state.shape[1])
+    rel = np.asarray(problem.const["release"], dtype=np.float32)[: state.shape[1]]
+    first = np.maximum(
+        np.searchsorted(t1, rel, side="left"),
+        np.searchsorted(lo + problem.cfg.W, j, side="right"),
+    )
+    resolved = np.searchsorted(t1, fin.ravel(), side="left").reshape(fin.shape)
+    last = np.minimum(
+        np.where(state >= K.DONE, resolved, len(t1)),
+        np.searchsorted(lo, j, side="right")[None, :],
+    )
+    return int(np.clip(last - first[None, :], 0, None).sum())
 
 
 def _assemble_reports(problem: SoaProblem, out: Dict[str, np.ndarray]):

@@ -54,6 +54,18 @@ it computes:
   :func:`_bump_work_conserving` and the EDF gathers.  The standalone
   grant :func:`ladder_grant` (the literal counterpart of the reference's
   Pallas kernel) stays, off the loop's path.
+
+One difference does change what it computes, where the reference has
+no counterpart: a problem that takes several rounds a ``dt_s`` step
+(``KernelConfig.subrounds``, which the reference's config lacks, so its
+problems keep one) projects ads's at-risk finishes from progress synced
+on the engine's chunk grid (:func:`_stale_on_chunk_grid`) instead of a
+grid anchored at the last sync.  The engine's grid is the right one at
+any cadence; a problem of one round a step keeps the anchored grid only
+so that it stays bit for bit the reference loop (every cockpit x4 cell
+and test).  At 1 ms rounds the two read alike (cockpit x9 on an H100,
+96 lanes: lat_ks 0.0795-0.0817 on the engine's grid, 0.0812-0.0834 on
+the anchored one); at finer rounds the engine's grid reads closer.
 """
 from __future__ import annotations
 
@@ -154,6 +166,11 @@ class KernelConfig:
     n_chunks: int = 6
     alloc_iters: int = 8       # monotone EDF-allocation refinement steps
     bump_passes: int = 8       # tp work-conserving bump refinement steps
+    #: rounds per ``dt_s`` step of the grid (``soa._subrounds_for``); above
+    #: one, ads's at-risk projection takes the engine's chunk grid and
+    #: the loop counts the reallocations of the rounds after a step's
+    #: first (module docstring)
+    subrounds: int = 1
 
 
 # ---------------------------------------------------------------------------
@@ -636,6 +653,21 @@ class _Body:
     out: tuple
 
 
+def _stale_on_chunk_grid(fin, t1, adv, d_cur, n_chunks: int):
+    """Share of a running job's work left as of its last progress sync
+    before ``t1``, as the event-driven engine holds it: the engine syncs
+    at the job's chunk events, which fall on its progress grid (``k /
+    n_chunks`` of the job), and at a freeze, resume or start (``adv``).
+    The sync is the later of the two (+1e-5: a point just passed reads
+    passed through float32 rounding).  ``fin`` is the job's projected
+    finish at its current duration ``d_cur``."""
+    dd = torch.clamp(d_cur, min=1e-12)
+    u_sync = ((fin - adv) / dd).clamp(0.0, 1.0)
+    p_now = (1.0 - (fin - torch.maximum(adv, t1)) / dd).clamp(0.0, 1.0)
+    u_grid = 1.0 - torch.floor(p_now * n_chunks + 1e-5) / n_chunks
+    return torch.minimum(u_sync, u_grid)
+
+
 def _round_body(cfg: KernelConfig, dc, work, io, codes) -> _Body:
     """The round loop's state and its round as steps.
 
@@ -667,6 +699,8 @@ def _round_body(cfg: KernelConfig, dc, work, io, codes) -> _Body:
     busy = zeros((R, S_))
     rel = zeros((R, S_))
     nre = zeros((R,))
+    # reallocations of the rounds after a step's first (sub-rounds only)
+    nre_sub = zeros((R,)) if cfg.subrounds > 1 else None
     rbytes = zeros((R,))
     dwork = zeros((R,))
 
@@ -1002,14 +1036,19 @@ def _round_body(cfg: KernelConfig, dc, work, io, codes) -> _Body:
         blocked = still & (want_rdy > own_free2 + 0.5)
         # progress is synced only at chunk boundaries and realloc
         # freezes: the projection runs on progress stale since the
-        # last chunk boundary before t1 (``adv`` anchors the grid)
-        chunk_iv = torch.clamp(d_cur, min=1e-12) / float(cfg.n_chunks)
-        stale_amt = where0(
-            run, torch.remainder((t1 - adv).clamp(min=0.0), chunk_iv)
-        )
-        rem_stale = (
-            ((fin - t1) + stale_amt) / torch.clamp(d_cur, min=1e-12)
-        ).clamp(0.0, 1.0)
+        # last chunk boundary before t1 (only running jobs' value is read)
+        if cfg.subrounds > 1:
+            rem_stale = _stale_on_chunk_grid(fin, t1, adv, d_cur, cfg.n_chunks)
+        else:
+            # the reference loop's grid, anchored at ``adv`` (kept bit
+            # for bit; see the module docstring)
+            chunk_iv = torch.clamp(d_cur, min=1e-12) / float(cfg.n_chunks)
+            stale_amt = where0(
+                run, torch.remainder((t1 - adv).clamp(min=0.0), chunk_iv)
+            )
+            rem_stale = (
+                ((fin - t1) + stale_amt) / torch.clamp(d_cur, min=1e-12)
+            ).clamp(0.0, 1.0)
         at_risk = run & (cmaxw[None, :] > dop + 0.5) & (
             t1 + rem_stale * d_cur > tgtb
         )
@@ -1133,7 +1172,10 @@ def _round_body(cfg: KernelConfig, dc, work, io, codes) -> _Body:
             # the freeze is where the scalar engine syncs progress: the
             # staleness clock restarts at the stall's end
             adv = torch.where(frozen | keep, t1 + stall_own, adv)
-            nre.add_(changed_p.to(_F32).sum(dim=1))
+            n_changed = changed_p.to(_F32).sum(dim=1)
+            nre.add_(n_changed)
+            if nre_sub is not None:
+                nre_sub.add_(n_changed * (rnd.remainder(cfg.subrounds) > 0))
             rbytes.add_(moved_p.sum(dim=1))
 
         dop = torch.where(started, grant, dop)
@@ -1179,7 +1221,7 @@ def _round_body(cfg: KernelConfig, dc, work, io, codes) -> _Body:
                  ("soa_round.policy", policy, launch),
                  ("soa_round.apply", apply_granted, None)]
     return _Body(steps=steps, seam=seam, handoff=h,
-                 out=(planes, codes, stall_end, busy, rel, nre, rbytes, dwork))
+                 out=(planes, codes, stall_end, busy, rel, nre, rbytes, dwork, nre_sub))
 
 
 def _capture(body: _Body, dev: torch.device, pool) -> list:
@@ -1306,7 +1348,7 @@ def simulate(
                 dc["graph_pool"] = torch.cuda.MemPool()
         work, io, codes = lane("work"), lane("io"), lane("codes0").clone()
     with _cuda_loop_guard(dev), metrics.phase("soa_issue"), metrics.phase_seq():
-        st, codes, stall_end, busy, rel, nre, rbytes, dwork = _run_rounds(
+        st, codes, stall_end, busy, rel, nre, rbytes, dwork, nre_sub = _run_rounds(
             cfg, host, dc, work, io, codes
         )
 
@@ -1333,5 +1375,7 @@ def simulate(
             "realloc_bytes": f8(rbytes),
             "dropped_work": f8(dwork),
         }
+        if nre_sub is not None:
+            out["n_realloc_sub"] = f8(nre_sub)
         dc.pop("graph_pool", None)
     return out

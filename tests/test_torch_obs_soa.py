@@ -192,3 +192,38 @@ def test_a_range_still_open_when_the_profiler_stops_closes_cleanly():
     assert "span:closed" in names
     assert not {"span:outer", "span:before", "span:after"} & names
     assert {"outer", "before", "inside", "closed", "after"} <= set(metrics.snapshot()["phases"])
+
+
+#: the round loop's window and reallocation counters
+WINDOW_COUNTERS = ("soa_window_live", "soa_window_cols", "soa_reallocs")
+
+
+@pytest.mark.parametrize("replicas, subrounds", [(4, 1), (9, 2)])
+def test_window_and_subround_counters_repeat_and_stay_off_when_off(replicas, subrounds):
+    """The job window's live columns, its columns, the reallocations and,
+    where a step takes sub-rounds, those taken in them: the same on a
+    second run of the same fan, none of them recorded while the registry
+    is off."""
+
+    def counters(on):
+        metrics.enable(on)
+        metrics.reset()
+        spec = ScenarioSpec(scenario=SCRIPT, policy="ads_tile", cockpit_replicas=replicas)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            reports = run(spec, seeds=SEEDS, backend="soa", fallback=False, device="cpu")
+        snap = metrics.snapshot(reset_after=True)
+        metrics.enable(False)
+        return snap["counters"], reports
+
+    (first, reports), (second, _) = counters(True), counters(True)
+    names = WINDOW_COUNTERS + (("soa_subround_reallocs",) if subrounds > 1 else ())
+    assert {k: first[k] for k in names} == {k: second[k] for k in names}
+    assert 0 < first["soa_window_live"] < first["soa_window_cols"]
+    assert first["soa_window_cols"] % (first["soa_rounds"] * len(SEEDS)) == 0
+    assert first["soa_reallocs"] == sum(r.n_realloc for r in reports)
+    if subrounds > 1:
+        assert 0 < first["soa_subround_reallocs"] < first["soa_reallocs"]
+    else:
+        assert "soa_subround_reallocs" not in first
+    assert not {*names, "soa_subround_reallocs"} & set(counters(False)[0])
