@@ -161,6 +161,22 @@ class SoaOptions:
 
 
 @dataclasses.dataclass
+class WindowNeed:
+    """The job-window lifetime that a loop needed, asked of
+    :func:`build_problem` (``measure_need=True``) and filled in by
+    :func:`run_problem` once the loop has run without an overflow (see
+    :func:`_window_need`).  The problem's own window geometry rides
+    along: the real jobs' releases and the rounds' ends in float64, as
+    :func:`_job_window` takes them."""
+
+    release: np.ndarray         # (n_real,) float64, window order
+    t1: np.ndarray              # (n_rounds,) float64
+    window_round: int
+    drop_rounds: int            # a drop's rounds past its drop time, at most
+    life: Optional[float] = None
+
+
+@dataclasses.dataclass
 class SoaProblem:
     """One compiled-shape scenario cell plus report-assembly side data."""
 
@@ -193,6 +209,7 @@ class SoaProblem:
     skeleton_key: tuple
     life: float                 # job-window lifetime bound (seconds)
     win_lo_final: int           # highest window lower bound over rounds
+    need: Optional[WindowNeed] = None   # asked by the runner, see run_problem
 
 
 def _policy_knobs(policy) -> Tuple[bool, bool, bool, float]:
@@ -313,11 +330,14 @@ def build_problem(
     n_lanes: int = 8,
     drop_policy: str = "soft",
     options: Optional[SoaOptions] = None,
+    measure_need: bool = False,
 ) -> SoaProblem:
     """Precompute one scenario cell's lane-independent arrays.
 
     ``policy`` may be a policy instance (ads ablation flags are read
-    off it) or a policy name string.
+    off it) or a policy name string.  With ``measure_need`` the problem
+    carries a :class:`WindowNeed` that :func:`run_problem` fills in with
+    the job-window lifetime its loop needed.
     """
     opt = options or SoaOptions()
     hw = model.hw
@@ -399,20 +419,16 @@ def build_problem(
     # wide-enough retry always possible, and run_problem's post-check
     # raises SoaWindowOverflow if the bound still proved too tight
     # (never silently truncates).
-    max_hops = max((len(c.nodes) for c in wf.chains), default=4)
+    max_hops = _max_hops(wf)
     cascade = (max_hops + 4) * dt
-    life = (
-        float(np.max(ddl_off[np.isfinite(ddl_off)]))
-        + cascade
-        + float(opt.life_pad_s)
-    )
+    life = _base_life(ddl_off, max_hops, dt) + float(opt.life_pad_s)
     life = min(max(life, 2 * dt), duration + cascade)
-    lo = np.searchsorted(rel, t1s - life, side="left")
-    hi = np.searchsorted(rel, t1s, side="right")
-    wr = int(opt.window_round)
-    W = int(max(8, ((int(np.max(hi - lo)) + wr - 1) // wr) * wr))
-    lo = np.minimum(lo, np.maximum(hi - W, 0)).astype(np.int32)
+    lo, W = _job_window(rel, t1s, life, int(opt.window_round))
     n_pad = int(max(n_real, int(np.max(lo)) + W))
+    need = WindowNeed(
+        release=rel, t1=t1s, window_round=int(opt.window_round),
+        drop_rounds=max_hops + 4,
+    ) if measure_need else None
 
     def padf(a, fill):
         out = np.full(n_pad, fill, dtype=np.float64)
@@ -633,7 +649,41 @@ def build_problem(
         skeleton_key=skel.key,
         life=float(life),
         win_lo_final=int(lo.max()) if n_rounds else 0,
+        need=need,
     )
+
+
+def _max_hops(wf) -> int:
+    return max((len(c.nodes) for c in wf.chains), default=4)
+
+
+def _base_life(ddl_off: np.ndarray, max_hops: int, dt: float) -> float:
+    """The job-window lifetime bound before any pad: the largest E2E
+    deadline offset, plus one dependency hop a round for the drop
+    cascade."""
+    return float(np.max(ddl_off[np.isfinite(ddl_off)])) + (max_hops + 4) * dt
+
+
+def default_life(wf, skeleton) -> float:
+    """:func:`build_problem`'s job-window lifetime bound under the default
+    :class:`SoaOptions` for the drive ``skeleton`` (before the bound is
+    capped at the horizon): a lifetime ``L`` above it is the pad
+    ``L - default_life``."""
+    dt = float(SoaOptions().dt_s)
+    tasks = sorted({skeleton.tasks[j] for j in skeleton.dnn_ix})
+    ddl_off = np.array([wf.deadline_offset(t) for t in tasks], dtype=np.float64)
+    return _base_life(ddl_off, _max_hops(wf), dt)
+
+
+def _job_window(rel: np.ndarray, t1s: np.ndarray, life: float, wr: int):
+    """Each round's job window for the lifetime bound ``life``: its width
+    ``W``, the most jobs released within ``life`` up to a round's end
+    rounded up to a multiple of ``wr``, and its first column ``lo``
+    (int32, a round), so that it holds the ``W`` newest released jobs."""
+    lo = np.searchsorted(rel, t1s - life, side="left")
+    hi = np.searchsorted(rel, t1s, side="right")
+    W = int(max(8, ((int(np.max(hi - lo)) + wr - 1) // wr) * wr))
+    return np.minimum(lo, np.maximum(hi - W, 0)).astype(np.int32), W
 
 
 #: the reference's Pallas routing knobs; the port has none (on a CUDA
@@ -728,6 +778,8 @@ def run_problem(
                 "doubled window automatically) or use the scalar "
                 "backend for this cell."
             )
+    if problem.need is not None:
+        problem.need.life = _window_need(problem, out)
     with metrics.phase("soa_reports"):
         return _assemble_reports(problem, out)
 
@@ -756,6 +808,69 @@ def _window_live(problem: SoaProblem, out: Dict[str, np.ndarray]) -> int:
         np.searchsorted(lo, j, side="right")[None, :],
     )
     return int(np.clip(last - first[None, :], 0, None).sum())
+
+
+def _resolve_rounds(problem: SoaProblem, out: Dict[str, np.ndarray]) -> np.ndarray:
+    """(R, n_real) the round whose ``resolve`` step took each job to DONE
+    or DROP, from the loop's final planes and its own float32
+    comparisons; a job unresolved at the end gets the last round.
+
+    A job turns DONE in the first round whose ``t1`` reaches its final
+    ``fin`` (``fin <= t1``), unless that ``fin`` was set in that very
+    round (a start at or after the round's ``t0 - 1e-9``, or a resize to
+    end at its ``t1``): then in the next.  A drop's time is backdated,
+    and a cascade reaches a job one round a hop after the drop before
+    it, so a DROP counts ``need.drop_rounds`` past its time's round (a
+    bound, not the round itself; drops come only with ``drop_mode`` 1
+    and 2)."""
+    t0 = np.asarray(problem.const["t0"], dtype=np.float32)
+    t1 = np.asarray(problem.const["t1"], dtype=np.float32)
+    t0_lo = (t0.astype(np.float64) - 1e-9).astype(np.float32)
+    last = len(t1) - 1
+    n = problem.n_real
+    state = out["state"][:, :n]
+    fin = np.asarray(out["fin"][:, :n], dtype=np.float32)
+    start = np.asarray(out["start"][:, :n], dtype=np.float32)
+    r = np.searchsorted(t1, fin.ravel(), side="left").reshape(fin.shape)
+    rc = np.minimum(r, last)
+    same = (start >= t0_lo[rc]) | (fin == t1[rc])
+    r = np.where(state == K.DROP, r + problem.need.drop_rounds, r + same)
+    return np.where(state >= K.DONE, np.minimum(r, last), last)
+
+
+def _window_need(problem: SoaProblem, out: Dict[str, np.ndarray]) -> float:
+    """The least job-window lifetime bound at which this loop lets no job
+    slide out of the window before the round that resolves it.
+
+    :func:`_job_window` puts each round's window on the ``W`` newest
+    released jobs, ``lo = max(hi - W, 0)`` with ``hi`` the jobs released
+    by the round's end.  Job ``j``, resolved in round ``r_j``
+    (:func:`_resolve_rounds`), stays in every window up to ``r_j`` iff
+    ``W >= hi[r_j] - j``, since ``hi`` only grows; a job unresolved at
+    the end must lie in the last window.  ``W`` rises with the lifetime
+    ``L``, so the need is the least ``L`` whose ``W`` reaches the largest
+    ``hi[r_j] - j`` over lanes and jobs, found by bisection.  The job's
+    stay ``t1[r_j] - release[j]`` is one lifetime that reaches it
+    (``lo = searchsorted(release, t1 - L)`` is then at most ``j`` up to
+    ``r_j``), so the need is at most the longest stay, and less where a
+    denser round than the longest stay's sets ``W``."""
+    need = problem.need
+    hi = np.searchsorted(need.release, need.t1, side="right")
+    r = _resolve_rounds(problem, out)
+    span = int(np.max(hi[r] - np.arange(problem.n_real), initial=0))
+
+    def width(life: float) -> int:
+        return _job_window(need.release, need.t1, life, need.window_round)[1]
+
+    if width(0.0) >= span:
+        return 0.0
+    lo_l, hi_l = 0.0, float(need.t1[-1] - need.release[0]) + 1.0
+    for _ in range(64):
+        mid = 0.5 * (lo_l + hi_l)
+        if mid in (lo_l, hi_l):
+            break
+        lo_l, hi_l = (lo_l, mid) if width(mid) >= span else (mid, hi_l)
+    return hi_l
 
 
 def _assemble_reports(problem: SoaProblem, out: Dict[str, np.ndarray]):

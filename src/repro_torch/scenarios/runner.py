@@ -467,6 +467,18 @@ def _run_lockstep_group(
 #: per-process memo of SoA window pads that proved necessary, keyed by
 #: (skeleton key, policy, drop policy, duration) — see _run_soa
 _SOA_LIFE_PAD_HINT: Dict[tuple, float] = {}
+#: per-process memo of the SoA job-window lifetimes fitted to what a
+#: cell's loops needed, the same keys — see _run_soa
+_SOA_LIFE_FIT: Dict[tuple, float] = {}
+#: the fitted lifetime's room over the need one fan measured: at least
+#: the largest ratio of two fans' needs, so that a fit learnt from any
+#: one of them holds every other.  Measured on an NVIDIA H100 over 16
+#: fans of 1024 lanes (seeds 102000000 + k * 1024 + j) at the horizon's
+#: window, cockpit x9 under ads_tile over commute's 2.0 s drive
+#: (scripts/soa_window_need.py): needs 0.2667 s once, 0.3 s six times,
+#: 0.3333 s seven times, 0.3667 s twice (job spans 363-463); the largest
+#: ratio 1.375, rounded up to a twentieth
+_SOA_FIT_MARGIN = 1.4
 
 
 def _run_soa(
@@ -501,10 +513,23 @@ def _run_soa(
     # that worked is remembered per cell so repeat calls skip the
     # discarded detection run; the hint only ever *widens* the default,
     # and only applies when the caller did not pass explicit options.
+    # A loop that ran at a widened window also measures the lifetime its
+    # lanes needed, and the cell's later fans start at the largest such
+    # need times _SOA_FIT_MARGIN (never below the default, nor above the
+    # hint's window, which held the fan that measured it) instead of the
+    # hint's window: the same work, on fewer columns, and the same
+    # retries should a fan's lanes outlive it.
     hint_key = (skel.key, spec.policy, spec.drop_policy, float(duration))
-    opt0 = options if options is not None else soa.SoaOptions(
-        life_pad_s=_SOA_LIFE_PAD_HINT.get(hint_key, 0.0)
-    )
+    hint = _SOA_LIFE_PAD_HINT.get(hint_key, 0.0)
+    fit = _SOA_LIFE_FIT.get(hint_key) if options is None else None
+    if options is not None:
+        opt0 = options
+    elif fit is not None:
+        opt0 = soa.SoaOptions(
+            life_pad_s=min(max(0.0, fit - soa.default_life(wf, skel)), hint)
+        )
+    else:
+        opt0 = soa.SoaOptions(life_pad_s=hint)
     opt = opt0
     for attempt in range(3):
         with metrics.phase("soa_build"):
@@ -513,10 +538,13 @@ def _run_soa(
                 _make_run_policy(spec, portfolio), scen, duration,
                 replan=spec.replan, n_lanes=len(seeds),
                 drop_policy=spec.drop_policy, options=opt,
+                measure_need=options is None and opt.life_pad_s > 0.0,
             )
         try:
             reports = soa.run_problem(problem, btrace, seeds, device=device)
         except soa.SoaWindowOverflow:
+            if fit is not None and attempt == 0:
+                metrics.count("soa_window_fit_hits", 0)
             if problem.life >= duration or attempt == 2:
                 raise
             metrics.count("soa_window_retries")
@@ -533,10 +561,15 @@ def _run_soa(
                 opt0, life_pad_s=opt0.life_pad_s + pad
             )
         else:
-            if options is None and opt.life_pad_s > _SOA_LIFE_PAD_HINT.get(
-                hint_key, 0.0
-            ):
+            if fit is not None and attempt == 0:
+                metrics.count("soa_window_fit_hits")
+            if options is None and opt.life_pad_s > hint:
                 _SOA_LIFE_PAD_HINT[hint_key] = opt.life_pad_s
+            if problem.need is not None:
+                _SOA_LIFE_FIT[hint_key] = max(
+                    _SOA_LIFE_FIT.get(hint_key, 0.0),
+                    problem.need.life * _SOA_FIT_MARGIN,
+                )
             return reports
 
 
